@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 card, then serves seeded text-line images through ``ServingDaemon`` at the
-full ``hctr`` width on the greedy and the beam route, and checks what comes
-out. Every phase prints one JSON line; any failed check raises, so the exit
-code is non-zero. The last line is ``{"ok": true, "device": {...}}``.
+full ``hctr`` width on the greedy and the beam route, and on the LM-fused
+beam route with the full-width char LM, and checks what comes out. Every
+phase prints one JSON line; any failed check raises, so the exit code is
+non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA card and the repository around it: without either it fails
 before printing any result. TF32 is switched off for convolutions and matrix
@@ -16,6 +17,7 @@ products, so f32 work on the card is full f32.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -28,8 +30,16 @@ import torch
 from handwritten_chinese_ocr_samples_torch.core.codec import CTCCodec
 from handwritten_chinese_ocr_samples_torch.decode.beam_device import (
     beam_search_fused, beam_search_from_topk)
+from handwritten_chinese_ocr_samples_torch.decode.beam_lm_device import (
+    make_lm_beam_search)
+from handwritten_chinese_ocr_samples_torch.decode.lm_interface import (
+    TorchLMBackend)
+from handwritten_chinese_ocr_samples_torch.lm.io import load_lm
 from handwritten_chinese_ocr_samples_torch.models.registry import get_model_info
 from handwritten_chinese_ocr_samples_torch.ops import _build
+from handwritten_chinese_ocr_samples_torch.ops import cache_gather as k4
+from handwritten_chinese_ocr_samples_torch.ops import logits_lse as k3
+from handwritten_chinese_ocr_samples_torch.ops import peek_attention as k2
 from handwritten_chinese_ocr_samples_torch.ops import topk_logsoftmax as k1
 from handwritten_chinese_ocr_samples_torch.ops.decode import greedy_decode_device
 from handwritten_chinese_ocr_samples_torch.serve.daemon import ServingDaemon
@@ -42,10 +52,31 @@ BATCH = 4
 N_REQUESTS = 16
 SEARCH_DEPTH = 10
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
+SPIN_CYCLES = 10_000_000       # first spin of device_ms, about 5 ms
 F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 K1_OPS_PER_LOGIT = 8           # max, sub, exp, add, sub, compare, add, top-K compare
 K1_TOL = 1e-5                  # |vals|, |blank| vs plain: f32 sums in another order
 FWD_TOL = 1e-4                 # f32 forward, card vs CPU: conv sums in another order
+# K2 on bf16 inputs: f32 sums in another order move the scores by ~1e-6, and
+# a weight that lands on the other side of a bf16 rounding step moves o by
+# one bf16 step of that weight; l and m see only the f32 order
+K2_REL_TOL = 1e-3              # max |o - plain| / max |plain|, same for l
+K2_M_TOL = 1e-3                # max |m - plain|
+K3_TOL = 1e-3                  # |LSE - plain|: f32 dot products in another order
+K4_TOL = 0.0                   # a copy: exact
+NEAR_TIE = 1e-5                # LM route: kernel vs plain totals at a divergence
+# The LM route's shapes (trap: the LM's context is 160, and a seeded hctr
+# emits a character on almost every frame, so lines stay within 158 frames)
+LM_WIDTH = 128
+LM_REQUESTS = 8
+LM_SEED = 1
+LM_LAYERS, LM_HEADS, LM_DHEAD, LM_CTX = 6, 8, 64, 160
+LM_VOCAB = 7377                # 4 specials + the 7373 characters
+LM_BEAMS = BATCH * 10          # G = 4 lines of BM = 10 beams
+LM_ROWS = 21                   # 1 stay row + K = 10 visual + M = 10 LM rows
+LM_SC = 4                      # peek positions run per row (S1 - 1)
 
 
 def emit(obj) -> None:
@@ -94,6 +125,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call, with a cold L2. Each call is queued
+    behind a spin kernel and a write of twice the L2's size, so the events
+    around it time the card's work and not the host's launch of it; the
+    spin doubles until the host has queued the call before the card gets
+    to it."""
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    spin, times = SPIN_CYCLES, []
+    while len(times) < reps:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        flush.zero_()
+        s.record()
+        fn()
+        queued_in_time = not s.query()
+        e.record()
+        e.synchronize()
+        if queued_in_time:
+            times.append(s.elapsed_time(e))
+        else:
+            check(spin < SPIN_CYCLES * 2 ** 8, "device_ms: the host never "
+                  "queued the call before the card reached it")
+            spin *= 2
+    return statistics.median(times)
+
+
 def compare_k1(x: torch.Tensor, k: int = SEARCH_DEPTH) -> float:
     """K1 against its plain version on the same card tensor; returns the
     largest |difference| of vals and blank."""
@@ -128,9 +188,9 @@ def phase_kernels(dev: torch.device):
 
     B, T = 8, 1024
     x = torch.randn((B, T, D), device=dev, generator=g)
-    ms = cuda_ms(lambda: k1.topk_logsoftmax(x, k=SEARCH_DEPTH))
-    plain_ms = cuda_ms(lambda: k1.topk_logsoftmax_plain(x, k=SEARCH_DEPTH))
-    library_ms = cuda_ms(
+    ms = device_ms(lambda: k1.topk_logsoftmax(x, k=SEARCH_DEPTH))
+    plain_ms = device_ms(lambda: k1.topk_logsoftmax_plain(x, k=SEARCH_DEPTH))
+    library_ms = device_ms(
         lambda: torch.topk(torch.log_softmax(x, dim=-1), SEARCH_DEPTH, dim=-1))
     rows = B * T
     bytes_moved = rows * D * 4 + rows * SEARCH_DEPTH * 8 + rows * 8
@@ -144,13 +204,17 @@ def phase_kernels(dev: torch.device):
     return max(errs), timing
 
 
-def phase_serve(dev: torch.device):
+def recognizer():
+    """The full-width ``hctr`` (bf16 compute) with seeded weights."""
     model, characters = get_model_info("hctr", chars_list_file=CHARS_LIST,
                                        dtype=torch.bfloat16)
     codec = CTCCodec(characters)
-    n_params = sum(p.numel() for p in model.parameters())
     check(codec.num_classes == 7375, f"{codec.num_classes} classes")
-    state = seeded_state_dict(model, 0)
+    return model, codec, seeded_state_dict(model, 0)
+
+
+def phase_serve(dev: torch.device, model, codec, state):
+    n_params = sum(p.numel() for p in model.parameters())
     images = text_lines(N_REQUESTS, seed=0)
 
     # f32 reference on a small input: card vs CPU, same weights
@@ -307,6 +371,443 @@ def phase_breakdown(engine: ServingEngine, images, items) -> None:
           "beam_search_ms": beam_ms})
 
 
+# ------------------------------------------------------------ K2, K3, K4
+def bound_ms(bytes_moved: float, ops: float, ops_per_s: float):
+    """The least time for the work: bytes over the HBM rate or operations
+    over the peak rate of their type, whichever is longer."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def k2_inputs(dev, g, B, N, L, dtype=torch.bfloat16):
+    """Pre-scaled queries and a cache; beam 0 has an empty cache and beam 1
+    a full one."""
+    H, Dh = LM_HEADS, LM_DHEAD
+    q = (torch.randn((B, N, H, Dh), device=dev, generator=g)
+         / Dh ** 0.5).to(dtype)
+    k = torch.randn((B, L, H, Dh), device=dev, generator=g).to(dtype)
+    v = torch.randn((B, L, H, Dh), device=dev, generator=g).to(dtype)
+    lengths = torch.randint(1, L + 1, (B,), device=dev, generator=g,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 0, L
+    return q, k, v, lengths
+
+
+def compare_k2(q, k, v, lengths) -> float:
+    """K2 against its plain version; returns the largest |difference| of
+    o, m and l."""
+    (o, m, l), (po, pm, pl) = (k2.peek_cache_attention(q, k, v, lengths),
+                               k2.peek_cache_attention_plain(q, k, v,
+                                                             lengths))
+    torch.cuda.synchronize()
+    shape = (tuple(q.shape), tuple(k.shape), str(q.dtype))
+    e_o, e_l = rel_err(o, po), rel_err(l, pl)
+    e_m = (m - pm).abs().max().item()
+    check(e_o <= K2_REL_TOL and e_l <= K2_REL_TOL and e_m <= K2_M_TOL,
+          f"K2 differs at {shape}: o rel {e_o}, l rel {e_l}, m {e_m}")
+    empty = lengths == 0
+    check(bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+               and (o[empty] == 0).all()),
+          f"K2 empty cache is not m = -1e30, l = 0, o = 0 at {shape}")
+    return max((o - po).abs().max().item(), e_m, (l - pl).abs().max().item())
+
+
+def compare_k3(x, emb) -> float:
+    got, want = k3.lse_rows(x, emb), k3.lse_rows_plain(x, emb)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(tuple(got.shape) == tuple(x.shape[:-1]) and err <= K3_TOL,
+          f"K3 differs by {err} at {tuple(x.shape)} x {tuple(emb.shape)}")
+    return err
+
+
+def compare_k4(ck, cv, idx, kn, vn, wpos) -> float:
+    got = k4.gather_write_kv(ck, cv, idx, kn, vn, wpos)
+    want = k4.gather_write_kv_plain(ck, cv, idx, kn, vn, wpos)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want))
+    check(err <= K4_TOL, f"K4 differs by {err} at {tuple(ck.shape)}")
+    return err
+
+
+def k4_inputs(dev, g, B, L, dtype=torch.bfloat16):
+    """A cache of B beams; beams 0 and 1 share a parent, and the write
+    positions include 0, L and past L."""
+    shape = (LM_LAYERS, B, L, LM_HEADS, LM_DHEAD)
+    ck = torch.randn(shape, device=dev, generator=g).to(dtype)
+    cv = torch.randn(shape, device=dev, generator=g).to(dtype)
+    kn = torch.randn((LM_LAYERS, B, LM_HEADS, LM_DHEAD), device=dev,
+                     generator=g).to(dtype)
+    vn = torch.randn_like(kn)
+    idx = torch.randint(0, B, (B,), device=dev, generator=g,
+                        dtype=torch.int32)
+    idx[1] = idx[0]
+    wpos = torch.randint(0, L, (B,), device=dev, generator=g,
+                         dtype=torch.int32)
+    wpos[0], wpos[2], wpos[3] = 0, L, L + 5
+    return ck, cv, idx, kn, vn, wpos
+
+
+def phase_lm_kernels(dev, served: dict):
+    """K2, K3 and K4 against their plain versions, and timed (``device_ms``)
+    beside their bounds and, where one PyTorch call computes the
+    same, that call, on the inputs each got at one frame of the served LM
+    route (``served``, from ``record_frame``); then held against their plain
+    versions on edge cases at the served context and on small f32 and
+    ragged shapes."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+
+    # K2: the served frame (layer 0); edge cases at the served shapes
+    q, k, v, lengths = served["peek_cache_attention"]
+    B, N, H, Dh = q.shape
+    L = k.shape[1]
+    errs = [compare_k2(q, k, v, lengths),
+            compare_k2(*k2_inputs(dev, g, B, N, L)),
+            compare_k2(*k2_inputs(dev, g, 6, 10, 17, torch.float32)),
+            compare_k2(*k2_inputs(dev, g, 3, 5, 7))]
+    valid = int(lengths.clamp(0, L).sum())
+    es = q.element_size()
+    bms, by = bound_ms(q.numel() * es + 2 * valid * H * Dh * es
+                       + B * N * H * Dh * 4 + 2 * B * N * H * 4 + B * 4,
+                       4 * Dh * N * H * valid, BF16_OPS_PER_S)
+    out["peek_cache_attention"] = dict(
+        max_abs_err=max(errs), bound_ms=bms, bound_by=by,
+        ms=device_ms(lambda: k2.peek_cache_attention(q, k, v, lengths)),
+        plain_ms=device_ms(
+            lambda: k2.peek_cache_attention_plain(q, k, v, lengths)),
+        library_ms=None, shape={"q": list(q.shape), "kv": list(k.shape),
+                                "valid_cache_rows": valid})
+
+    # K3: the served frame's rows x the LM vocabulary; f32 and ragged
+    x, emb = served["lse_rows"]
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    V = emb.shape[0]
+    errs = [compare_k3(x, emb),
+            compare_k3(torch.randn((2, 3, 96), device=dev, generator=g),
+                       torch.randn((777, 96), device=dev, generator=g)),
+            compare_k3(
+                torch.randn((37, 48), device=dev, generator=g)
+                .to(torch.bfloat16),
+                torch.randn((130, 48), device=dev, generator=g)
+                .to(torch.bfloat16))]
+    bms, by = bound_ms((rows + V) * d * x.element_size() + rows * 4,
+                       2 * rows * V * d, BF16_OPS_PER_S)
+    out["lse_rows"] = dict(
+        max_abs_err=max(errs), bound_ms=bms, bound_by=by,
+        ms=device_ms(lambda: k3.lse_rows(x, emb)),
+        plain_ms=device_ms(lambda: k3.lse_rows_plain(x, emb)),
+        library_ms=device_ms(
+            lambda: torch.logsumexp(x.float() @ emb.float().T, -1)),
+        shape={"x": list(x.shape), "emb": [V, d]})
+
+    # K4: the served frame's commit; repeated parents, wpos 0 / L / past L
+    # and the identity with no write at the served shapes; f32
+    ck, cv, idx, kn, vn, wpos = served["gather_write_kv"]
+    n_lay, B, L = ck.shape[:3]
+    errs = [compare_k4(ck, cv, idx, kn, vn, wpos),
+            compare_k4(*k4_inputs(dev, g, B, L)),
+            compare_k4(*k4_inputs(dev, g, 5, 9, torch.float32))]
+    ident = torch.arange(B, device=dev, dtype=torch.int32)
+    nowrite = torch.full_like(wpos, L)
+    got = k4.gather_write_kv(ck, cv, ident, kn, vn, nowrite)
+    check(torch.equal(got[0], ck) and torch.equal(got[1], cv),
+          "K4 identity reorder without a write changed the cache")
+    row = ck[0, 0, 0].numel() * ck.element_size()
+    parents = int(torch.unique(idx).numel())
+    written = int((wpos < L).sum())
+    bms, by = bound_ms(2 * n_lay * (parents * L + B * L) * row
+                       + 2 * n_lay * written * row + 8 * B, 0,
+                       BF16_OPS_PER_S)
+    ok_rows = torch.nonzero(wpos < L)[:, 0]
+    ok_pos = wpos[ok_rows].long()
+    idx_l = idx.long()
+    lay = torch.arange(n_lay, device=dev)[:, None]
+
+    def library():
+        ok = ck.index_select(1, idx_l)
+        ov = cv.index_select(1, idx_l)
+        ok.index_put_((lay, ok_rows[None], ok_pos[None]), kn[:, ok_rows])
+        ov.index_put_((lay, ok_rows[None], ok_pos[None]), vn[:, ok_rows])
+        return ok, ov
+
+    lib = library()
+    plain = k4.gather_write_kv_plain(ck, cv, idx, kn, vn, wpos)
+    check(torch.equal(lib[0], plain[0]) and torch.equal(lib[1], plain[1]),
+          "the K4 library yardstick computes another function")
+    out["gather_write_kv"] = dict(
+        max_abs_err=max(errs), bound_ms=bms, bound_by=by,
+        ms=device_ms(lambda: k4.gather_write_kv(ck, cv, idx, kn, vn, wpos)),
+        plain_ms=device_ms(
+            lambda: k4.gather_write_kv_plain(ck, cv, idx, kn, vn, wpos)),
+        library_ms=device_ms(library),
+        shape={"cache": list(ck.shape), "distinct_parents": parents,
+               "rows_written": written})
+    emit({"phase": "lm_kernels", "frame": served["frame"], "ctx": L, **out})
+    return out
+
+
+# --------------------------------------------------------- LM-fused route
+def launch_counts() -> dict:
+    return {"topk_logsoftmax": k1.launches, "peek_cache_attention":
+            k2.launches, "lse_rows": k3.launches,
+            "gather_write_kv": k4.launches}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K1-K4 swapped for their plain versions on the card (every caller
+    reaches them through their module); no kernel may launch meanwhile."""
+    swaps = [(k1, "topk_logsoftmax", k1.topk_logsoftmax_plain),
+             (k2, "peek_cache_attention", k2.peek_cache_attention_plain),
+             (k3, "lse_rows", k3.lse_rows_plain),
+             (k4, "gather_write_kv", k4.gather_write_kv_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    before = launch_counts()
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    check(launch_counts() == before, "a kernel launched in the plain run")
+
+
+@contextlib.contextmanager
+def record_frame(frame: int):
+    """Wrap K2, K3 and K4 in their modules (every caller reaches them
+    through their module) and keep clones of the inputs each gets at search
+    frame ``frame`` of the next decode: K2 at layer 0, K3 and K4 at their
+    one call per frame. Yields the dict they are kept in."""
+    hooks = [(k2, "peek_cache_attention", LM_LAYERS * frame),
+             (k3, "lse_rows", frame), (k4, "gather_write_kv", frame)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
+    kept = {"frame": frame}
+
+    def recorder(name, fn, at):
+        calls = [0]
+
+        def rec(*args):
+            if calls[0] == at:
+                kept[name] = tuple(a.clone() for a in args)
+            calls[0] += 1
+            return fn(*args)
+        return rec
+
+    for mod, name, at in hooks:
+        setattr(mod, name, recorder(name, getattr(mod, name), at))
+    try:
+        yield kept
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    check(all(name in kept for _, name, _ in hooks),
+          f"frame {frame} reached only {sorted(kept)}")
+
+
+def searched_frames(logits: torch.Tensor, unknown_id: int,
+                    group: int) -> int:
+    """Frames the full search runs for a batch, from the greedy line alone:
+    per group of lines, the largest last-greedy-character frame + 4."""
+    arg = logits.argmax(-1).cpu().numpy()
+    B, T = arg.shape
+    ends = []
+    for b in range(B):
+        prev = np.concatenate([[-1], arg[b, :-1]])
+        keep = (arg[b] != 0) & (arg[b] != unknown_id) & (arg[b] != prev)
+        ends.append(min(int(np.nonzero(keep)[0][-1]) + 4, T)
+                    if keep.any() else 0)
+    return sum(max(ends[s:s + group]) for s in range(0, B, group))
+
+
+def first_divergence(engine: ServingEngine, logits: torch.Tensor) -> dict:
+    """Run the batch's search twice, with the kernels and with the plain
+    versions, recording every frame's selection; return the first frame,
+    line and rank where the two runs selected differently, with the two
+    totals there."""
+    beam = engine._lm_beam
+    runs = []
+    for ctx in (contextlib.nullcontext, plain_kernels):
+        trace = []
+        with ctx():
+            cv, ci, _, _ = k1.topk_logsoftmax(logits, k=SEARCH_DEPTH)
+            logz = torch.logsumexp(logits.float(), dim=-1)
+            search = make_lm_beam_search(
+                beam._clm, beam._c2l, beam._l2c, lm_ctx=beam._ctx,
+                group_size=beam.last_group,
+                on_select=lambda t, tot, par, ch: trace.append(
+                    (t, tot.clone(), par.clone(), ch.clone())),
+                **beam._kw)
+            search(cv, ci, logits, logz)
+        runs.append(trace)
+    for (t, tot_k, par_k, ch_k), (_, tot_p, par_p, ch_p) in zip(*runs):
+        differ = (par_k != par_p) | (ch_k != ch_p)
+        if bool(differ.any()):
+            g, r = (int(i) for i in torch.nonzero(differ)[0])
+            a, b = float(tot_k[g, r]), float(tot_p[g, r])
+            return {"frame": t, "line_in_group": g, "rank": r,
+                    "kernel_total": a, "plain_total": b, "diff": abs(a - b)}
+    raise AssertionError("texts differ but no selection differs")
+
+
+def phase_serve_lm(dev, model, codec, state):
+    """The LM-fused route: full hctr and the full-width char LM (both bf16,
+    seeded), 8 lines of width <= 128 through ServingDaemon at batch 4."""
+    lm = TorchLMBackend(*load_lm(f"seed:{LM_SEED}",
+                                 chars_list="".join(codec.chars_list)))
+    cfg = lm.lm_model.config()
+    check(cfg["vocab_size"] == LM_VOCAB
+          and cfg["d_model"] == LM_HEADS * LM_DHEAD
+          and cfg["n_layers"] == LM_LAYERS and cfg["max_len"] == LM_CTX,
+          f"LM config {cfg}")
+    engine = ServingEngine(model, state, codec, widths=(LM_WIDTH,),
+                           decode_method="beam-search",
+                           search_depth=SEARCH_DEPTH, lm=lm,
+                           use_lm_pred=True, use_lm_score=True, device=dev)
+    images = text_lines(LM_REQUESTS, seed=LM_SEED, widths=(64, LM_WIDTH))
+    with torch.inference_mode():  # forward warm-up at the bucket shape
+        engine.model(torch.zeros((BATCH, 128, LM_WIDTH, 1), device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in (k1, k2, k3, k4):  # ---- main path: the LM route
+        mod.launches = 0
+    t0 = time.perf_counter()
+    with ServingDaemon(engine, batch_size=BATCH, max_delay_ms=500.0) as d:
+        futs = [d.submit_array(a) for a in images]
+    texts = [f.result() for f in futs]
+    lps = LM_REQUESTS / (time.perf_counter() - t0)
+    counts = launch_counts()      # ---- end of main path
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    ctx, group = engine._lm_beam._ctx, engine._lm_beam.last_group
+    check(all(isinstance(t, str) for t in texts) and len(texts)
+          == LM_REQUESTS, "LM route texts malformed")
+
+    # the daemon's batches again (one bucket, FIFO): the decode with the
+    # kernels must give the served texts, and the decode with the plain
+    # versions the same texts, but for near-ties it reports
+    items = [engine.preprocess_array(a) for a in images]
+    check(all(w == LM_WIDTH for w, _ in items), "LM lines left the bucket")
+    frames, batches, divergences = 0, 0, []
+    with torch.inference_mode():
+        for s in range(0, LM_REQUESTS, BATCH):
+            chunk = list(range(s, min(s + BATCH, LM_REQUESTS)))
+            rows = chunk + [chunk[-1]] * (BATCH - len(chunk))
+            batch = np.concatenate([items[i][1] for i in rows])
+            x = (torch.from_numpy(batch).to(dev).float() - 127.5) / 127.5
+            logits = engine.model(x)
+            check(tuple(logits.shape) == (BATCH, LM_WIDTH, codec.num_classes)
+                  and bool(torch.isfinite(logits).all()),
+                  f"LM route logits {tuple(logits.shape)}")
+            batch_frames = searched_frames(logits, codec.unknown_id, group)
+            frames += batch_frames
+            batches += 1
+            if s == 0:  # keep one served frame's K2-K4 inputs
+                with record_frame(batch_frames // 2) as served:
+                    got = engine.decode_logits(logits)[:len(chunk)]
+            else:
+                got = engine.decode_logits(logits)[:len(chunk)]
+            check(got == [texts[i] for i in chunk],
+                  "LM route: daemon texts differ from a re-decode")
+            with plain_kernels():
+                want = engine.decode_logits(logits)[:len(chunk)]
+            if got != want:
+                div = first_divergence(engine, logits)
+                div["lines"] = [i for i, a, b in zip(chunk, got, want)
+                                if a != b]
+                divergences.append(div)
+                emit({"phase": "serve_lm_divergence", **div})
+                check(div["diff"] < NEAR_TIE,
+                      f"LM route: kernels and plain versions decode "
+                      f"differently beyond a near-tie: {div}")
+    check(group == BATCH and ctx <= LM_CTX, f"group {group}, ctx {ctx}")
+    check(frames > 0 and counts["lse_rows"] == counts["gather_write_kv"]
+          == frames, f"K3/K4 launches {counts} vs {frames} frames searched")
+    check(counts["peek_cache_attention"] == LM_LAYERS * frames,
+          f"K2 launches {counts} vs {LM_LAYERS} x {frames} frames")
+    check(counts["topk_logsoftmax"] == batches,
+          f"K1 launches {counts} vs {batches} LM batches")
+    emit({"phase": "serve_lm", "model": "hctr", "lm": "char-512x6",
+          "lm_params": sum(t.numel() for t in lm.lm_params.values()),
+          "lm_vocab": cfg["vocab_size"], "compute_dtype": "bfloat16",
+          "requests": LM_REQUESTS, "batch": BATCH, "width": LM_WIDTH,
+          "lines_per_s": lps, "peak_mem_mib": peak_mib,
+          "frames_searched": frames, "lm_batches": batches, "ctx": ctx,
+          "group": group, "launches": counts,
+          "texts_equal_plain": not divergences,
+          "near_ties": len(divergences),
+          "chars_per_line": statistics.mean(len(t) for t in texts)})
+    phase_lm_breakdown(engine, logits, batch_frames)
+    shapes = {name: [list(a.shape) for a in served[name]]
+              for name in ("peek_cache_attention", "lse_rows",
+                           "gather_write_kv")}
+    d = LM_HEADS * LM_DHEAD
+    check(shapes["peek_cache_attention"][:2]
+          == [[LM_BEAMS, LM_ROWS * LM_SC, LM_HEADS, LM_DHEAD],
+              [LM_BEAMS, ctx, LM_HEADS, LM_DHEAD]]
+          and shapes["lse_rows"] == [[LM_BEAMS, LM_ROWS, LM_SC - 1, d],
+                                     [LM_VOCAB, d]]
+          and shapes["gather_write_kv"][0]
+          == [LM_LAYERS, LM_BEAMS, ctx, LM_HEADS, LM_DHEAD],
+          f"served kernel inputs at ctx {ctx}: {shapes}")
+    return counts, served
+
+
+# kernels of the port by the name the profiler gives them
+_OWN = {"topk_logsoftmax_kernel": "topk_logsoftmax",
+        "peek_kernel": "peek_cache_attention", "lse_": "lse_rows",
+        "gather_write_kernel": "gather_write_kv"}
+
+
+def phase_lm_breakdown(engine: ServingEngine, logits: torch.Tensor,
+                       frames: int) -> None:
+    """Where one LM batch's time goes: the host clock around its decode
+    (ended by a synchronize), and torch.profiler's device time by kernel
+    over a second decode of the same batch. The idle share is 1 - device
+    time / unprofiled wall time; with no device time in the trace it is
+    reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.decode_logits(logits)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.decode_logits(logits)
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    own = {name: 0.0 for name in _OWN.values()}
+    for key, ms, _ in kernels:
+        for tag, name in _OWN.items():
+            if tag in key:
+                own[name] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    emit({"phase": "lm_breakdown", "batch": BATCH, "width": LM_WIDTH,
+          "frames": frames, "wall_ms": wall_ms,
+          "wall_ms_per_frame": wall_ms / max(frames, 1),
+          "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+          "device_idle_share": (1 - busy_ms / wall_ms if busy_ms > 0
+                                else "not measured"),
+          "kernel_launches": sum(n for _, _, n in kernels),
+          "own_kernels_ms": own,
+          "top_kernels": [{"name": k[:90], "ms": ms, "count": n}
+                          for k, ms, n in top]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -329,15 +830,35 @@ def main() -> int:
           "wall_s": time.perf_counter() - t0})
 
     k_err, timing = phase_kernels(dev)
-    launches, serve_err = phase_serve(dev)
-    emit({"kernels": [{
+    model, codec, state = recognizer()
+    launches, serve_err = phase_serve(dev, model, codec, state)
+    lm_counts, served = phase_serve_lm(dev, model, codec, state)
+    lm_kernels = phase_lm_kernels(dev, served)
+    rows = [{
         "name": "topk_logsoftmax", "route": "cuda",
         "source": "handwritten_chinese_ocr_samples_torch/csrc/topk_logsoftmax.cu",
         "replaces": "handwritten_chinese_ocr_samples_tpu/ops/topk_logsoftmax.py:67",
-        "launches": launches, "max_abs_err": max(k_err, serve_err),
+        "launches": launches + lm_counts["topk_logsoftmax"],
+        "max_abs_err": max(k_err, serve_err),
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_us"] / 1e3, "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
+        "library_ms": timing["library_ms"]}]
+    for kname, src, tpu in (
+            ("peek_cache_attention", "peek_attention.cu",
+             "ops/peek_attention.py:70"),
+            ("lse_rows", "lse_rows.cu", "ops/logits_lse.py:74"),
+            ("gather_write_kv", "gather_write_kv.cu",
+             "ops/cache_gather.py:109")):
+        t = lm_kernels[kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"handwritten_chinese_ocr_samples_torch/csrc/{src}",
+            "replaces": f"handwritten_chinese_ocr_samples_tpu/{tpu}",
+            "launches": lm_counts[kname], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

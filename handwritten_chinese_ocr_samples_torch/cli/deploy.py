@@ -2,13 +2,18 @@
 
     python -m handwritten_chinese_ocr_samples_torch.cli.deploy \\
         -m <weights.pt | seed:<n>> -i <image or folder> [-dm beam-search] \\
-        [-b 4] [--daemon] [-cl chars_list.txt] [-d cuda]
+        [-b 4] [--daemon] [-cl chars_list.txt] [-d cuda] \\
+        [-utp -uts -tp <lm dir | seed:<n>>]
 
 ``-m`` takes a torch state dict saved with ``torch.save`` (for example
 ``utils.weights.flax_to_torch`` of a JAX checkpoint, converted where JAX is
-installed) or ``seed:<n>``, random full-size weights from a seed. The flags
-are the JAX CLI's; those of routes the port does not have yet (LM, skip
-search, int8) stop with an error that names the ROADMAP item.
+installed) or ``seed:<n>``, random full-size weights from a seed. ``-tp``
+takes an LM directory (``config.json``, ``dict.txt``, ``weights.pt``) or
+``seed:<n>``, the ``char-512x6`` LM with random weights over the ``-cl``
+characters; ``-dm beam-search -uts -tp ...`` serves the LM-fused device
+search. The flags are the JAX CLI's; those of routes the port does not have
+yet (skip search, the host beam, int8) stop with an error that names the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,12 +27,11 @@ import sys
 # a route the port does not have yet (keys of ``serve.engine._LATER``)
 _UNPORTED = {
     "skip_search": (False, "skip_search"), "prune": (0.001, "skip_search"),
-    "kenlm_path": ("", "lm"), "tfm_path": ("", "lm"),
-    "use_tfm_pred": (False, "lm"), "use_tfm_score": (False, "lm"),
-    "lm_panelty": (1.9, "lm"), "lm_ctx": (0, "lm"), "lm_group": (8, "lm"),
-    "seg_budget": (0, "lm"), "run_max": (8, "lm"), "ctx_ladder": (112, "lm"),
-    "fused_commit": (False, "lm"), "lm_f32": (False, "lm"),
-    "lm_int8": (False, "lm"), "int8": (False, "int8"),
+    "seg_budget": (0, "skip_search"), "run_max": (8, "skip_search"),
+    "ctx_ladder": (112, "skip_search"),
+    "fused_commit": (False, "skip_search"),
+    "kenlm_path": ("", "host_beam"),
+    "lm_int8": (False, "int8"), "int8": (False, "int8"),
 }
 
 
@@ -71,23 +75,28 @@ def build_argparser():
                       default=10)
     args.add_argument("-lb", "--len-bonus", dest="len_bonus", type=float,
                       default=5.7)
+    args.add_argument("-tp", "--tfm-path", dest="tfm_path", type=str,
+                      default="", help="char LM: a directory (config.json, "
+                      "dict.txt, weights.pt) or 'seed:<n>'")
+    args.add_argument("-utp", "--use-tfm-pred", dest="use_tfm_pred",
+                      action="store_true",
+                      help="LM proposes candidates (needs -uts)")
+    args.add_argument("-uts", "--use-tfm-score", dest="use_tfm_score",
+                      action="store_true", help="LM scores the beams")
+    args.add_argument("-lp", "--lm-panelty", dest="lm_panelty", type=float,
+                      default=1.9)
+    # LM-fused search sizing (0 = auto from each batch; decode/adaptive.py)
+    args.add_argument("-lc", "--lm-ctx", dest="lm_ctx", type=int, default=0)
+    args.add_argument("-g", "--lm-group", dest="lm_group", type=int,
+                      default=8)
+    args.add_argument("--lm-f32", dest="lm_f32", action="store_true",
+                      help="run the LM in f32 (default bf16)")
     later = parser.add_argument_group(
-        "Not ported yet", "LM, skip-search and int8 routes (ROADMAP.md); "
-        "setting any of these stops with an error")
+        "Not ported yet", "skip-search, host-beam and int8 routes "
+        "(ROADMAP.md); setting any of these stops with an error")
     later.add_argument("-ss", "--skip-search", action="store_true")
     later.add_argument("-kp", "--kenlm-path", dest="kenlm_path", type=str,
                        default="")
-    later.add_argument("-tp", "--tfm-path", dest="tfm_path", type=str,
-                       default="")
-    later.add_argument("-utp", "--use-tfm-pred", dest="use_tfm_pred",
-                       action="store_true")
-    later.add_argument("-uts", "--use-tfm-score", dest="use_tfm_score",
-                       action="store_true")
-    later.add_argument("-lp", "--lm-panelty", dest="lm_panelty", type=float,
-                       default=1.9)
-    later.add_argument("-lc", "--lm-ctx", dest="lm_ctx", type=int, default=0)
-    later.add_argument("-g", "--lm-group", dest="lm_group", type=int,
-                       default=8)
     later.add_argument("--seg-budget", dest="seg_budget", type=int, default=0)
     later.add_argument("--run-max", dest="run_max", type=int, default=8)
     later.add_argument("--prune", dest="prune", type=float, default=0.001,
@@ -96,7 +105,6 @@ def build_argparser():
                        default=112)
     later.add_argument("--fused-commit", dest="fused_commit",
                        action="store_true")
-    later.add_argument("--lm-f32", dest="lm_f32", action="store_true")
     later.add_argument("--lm-int8", dest="lm_int8", action="store_true")
     later.add_argument("--int8", dest="int8", action="store_true")
     return parser
@@ -129,6 +137,13 @@ def main(argv=None):
 
     unported = {k: route for k, (default, route) in _UNPORTED.items()
                 if getattr(args, k) != default}
+    # the port serves the LM through the device search only: LM scoring
+    # with a transformer (-uts -tp); -utp alone and -uts without an LM are
+    # the host beam's
+    use_tfm = args.use_tfm_pred or args.use_tfm_score
+    if use_tfm and not (args.use_tfm_score and args.tfm_path):
+        unported["use_tfm_pred" if args.use_tfm_pred else
+                 "use_tfm_score"] = "host_beam"
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)}: "
                      + "; ".join(sorted({_LATER[r]
@@ -139,14 +154,22 @@ def main(argv=None):
         data_dir=args.input if os.path.isdir(args.input) else None,
         chars_list_file=args.chars_list, dtype=torch.bfloat16)
     codec = CTCCodec(characters)
+    lm = None
+    if args.method == "beam-search":
+        from ..decode.lm_interface import build_lm_backend
+        lm = build_lm_backend(args.tfm_path, use_tfm=use_tfm,
+                              chars_list=characters)
     widths = tuple(int(w) for w in args.widths.split(","))
     engine = ServingEngine(
         model, load_weights(args.model, model), codec, widths=widths,
         decode_method=args.method, beam_size=args.beam_size,
-        search_depth=args.search_depth, len_bonus=args.len_bonus,
-        device=args.device)
+        search_depth=args.search_depth, lm_panelty=args.lm_panelty,
+        len_bonus=args.len_bonus, lm=lm, use_lm_pred=args.use_tfm_pred,
+        use_lm_score=args.use_tfm_score, lm_ctx=args.lm_ctx,
+        lm_group=args.lm_group, lm_f32=args.lm_f32, device=args.device)
     log.info(f"Serving {args.language} on {engine.device} "
-             f"(widths {widths}, {args.method})")
+             f"(widths {widths}, {args.method}"
+             f"{', LM ' + args.tfm_path if lm is not None else ''})")
 
     if args.daemon and args.stdin_stream:
         return serve_stdin(engine, args)

@@ -52,6 +52,37 @@ def _logaddexp(a, b):
     return torch.where(mx <= _DEAD, NEG_INF, out)
 
 
+def _sort_rows(kh1: torch.Tensor, kh2: torch.Tensor) -> torch.Tensor:
+    """Per line (last axis), the row order of a stable sort by the key pair
+    ``(kh1, kh2)``, ties in row order: the JAX package's ``lax.sort`` of
+    ``(kh1, kh2, iota)`` with two keys, as one int64 key."""
+    key = kh1.long() * 2 ** 32 + (kh2.long() + 2 ** 31)
+    return torch.sort(key, dim=-1, stable=True).indices
+
+
+def _segment_logaddexp_sorted(vals: torch.Tensor,
+                              seg_start: torch.Tensor) -> torch.Tensor:
+    """Segmented logaddexp over key-sorted rows (last axis; ``seg_start``
+    marks each segment's first row). Every row gets its whole segment's
+    total, so segment-start rows carry what the JAX package's reverse
+    associative scan gives them (``decode/beam_device.py:66``); other rows
+    are never read.
+
+    Deterministic: the segment max and the prefix-sum bounds are order-free
+    reductions, and the exp-sums are f64 prefix sums whose differences lose
+    nothing at these row counts (no float atomics)."""
+    seg = seg_start.long().cumsum(-1) - 1
+    mx = torch.full_like(vals, NEG_INF).scatter_reduce(
+        -1, seg, vals, "amax").gather(-1, seg)
+    c = torch.exp((vals - mx).double()).cumsum(-1)
+    before = torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], -1)
+    top = torch.zeros_like(c).scatter_reduce(-1, seg, c, "amax")
+    base = torch.zeros_like(c).scatter_reduce(-1, seg, before, "amin",
+                                              include_self=False)
+    s = (top.gather(-1, seg) - base.gather(-1, seg)).log().float()
+    return torch.where(mx <= _DEAD, NEG_INF, mx + s)
+
+
 def _end_steps(first: torch.Tensor, unknown_id: int, blank_id: int,
                suffix_frames: int) -> torch.Tensor:
     """Per sample: the frame after the last greedy character, + suffix."""

@@ -2,11 +2,15 @@
 
 Requests are padded to a fixed set of width buckets; each batch runs
 normalise -> forward -> decode on the device, and only compact index rows
-come back to the host for the string join. Two decode routes:
+come back to the host for the string join. Three decode routes:
 
   * ``greedy-search``: argmax + CTC collapse on the device (``ops/decode``);
   * ``beam-search`` (no LM): the fused log-softmax + top-K kernel feeding the
-    device prefix beam search (``decode/beam_device``).
+    device prefix beam search (``decode/beam_device``);
+  * ``beam-search`` with a transformer LM and ``use_lm_score``: the fused
+    top-K (kernel K1) and the frame log-partition feeding the LM-fused
+    device search (``decode/adaptive`` over ``decode/beam_lm_device``,
+    kernels K2-K4), full per-frame search.
 
 Preprocessing parity with the JAX engine: grayscale, resize to the model
 height (area interpolation), fixed width — truncate on the right if wider,
@@ -24,15 +28,17 @@ import numpy as np
 import torch
 
 from ..decode.beam_device import beam_search_fused
+from ..ops import topk_logsoftmax as _k1
 from ..ops.decode import greedy_decode_device
 
 # Routes of the JAX engine that later slices port (ROADMAP.md, queue 1).
 _LATER = {
-    "lm": "the char LM and LM-fused beam search (ROADMAP.md queue 1, "
-          "items 6-7)",
     "skip_search": "skip search (ROADMAP.md queue 1, items 7 and 14: the "
                    "LM-fused search and the host beam search)",
-    "int8": "int8 serving (ROADMAP.md queue 1, item 10)",
+    "host_beam": "the host beam search, which serves -utp without -uts and "
+                 "a KenLM n-gram (ROADMAP.md queue 1, item 14)",
+    "int8": "int8 serving and int8 LM matmuls (ROADMAP.md queue 1, "
+            "item 10)",
 }
 
 
@@ -103,9 +109,12 @@ class ServingEngine:
     """OCR server over fixed width buckets.
 
     The weights go to ``device`` once, at construction. ``decode_method`` is
-    ``greedy-search`` or ``beam-search`` (device beam, no LM); the JAX
-    engine's LM, host-beam, skip-search and int8 routes raise
-    ``NotImplementedError`` until the port has them.
+    ``greedy-search`` or ``beam-search``; a beam search with ``lm`` (a
+    ``decode/lm_interface.TorchLMBackend``) and ``use_lm_score`` runs the
+    LM-fused device search, with the LM in bf16 unless ``lm_f32``. The JAX
+    engine's host-beam, skip-search and int8 routes raise
+    ``NotImplementedError`` until the port has them; none falls back to
+    another route.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict, codec,
@@ -113,22 +122,37 @@ class ServingEngine:
                  decode_method: str = "greedy-search",
                  beam_size: int = 10,
                  search_depth: int = 10,
+                 lm_panelty: float = 1.9,
                  len_bonus: float = 5.7,
                  lm=None,
                  use_lm_pred: bool = False,
                  use_lm_score: bool = False,
                  skip_search: bool = False,
+                 lm_ctx: int = 0,
+                 lm_group: int = 8,
+                 lm_f32: bool = False,
+                 lm_int8: bool = False,
                  int8: bool = False,
                  device: str | torch.device = "cuda"):
-        if lm is not None or use_lm_pred or use_lm_score:
-            raise NotImplementedError(f"not ported yet: {_LATER['lm']}")
-        if skip_search:
-            raise NotImplementedError(
-                f"not ported yet: {_LATER['skip_search']}")
-        if int8:
-            raise NotImplementedError(f"not ported yet: {_LATER['int8']}")
         if decode_method not in ("greedy-search", "beam-search"):
             raise ValueError(f"unknown decode method {decode_method!r}")
+        use_beam = decode_method == "beam-search"
+        # routing as in the JAX engine: a transformer LM (it has lm_model)
+        # with LM scoring takes the LM-fused device search; LM scoring
+        # without one, LM proposals without scoring, and any other LM (a
+        # KenLM n-gram) belong to the host beam
+        is_tfm = lm is not None and hasattr(lm, "lm_model")
+        self._device_lm_beam = use_beam and use_lm_score and is_tfm
+        if int8 or (self._device_lm_beam and lm_int8):
+            raise NotImplementedError(f"not ported yet: {_LATER['int8']}")
+        if skip_search and use_beam:
+            raise NotImplementedError(
+                f"not ported yet: {_LATER['skip_search']}")
+        if use_beam and not self._device_lm_beam and (
+                use_lm_score or (lm is not None
+                                 and (use_lm_pred or not is_tfm))):
+            raise NotImplementedError(
+                f"not ported yet: {_LATER['host_beam']}")
         self.device = torch.device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
@@ -138,6 +162,19 @@ class ServingEngine:
         self.beam_size = beam_size
         self.search_depth = search_depth
         self.len_bonus = len_bonus
+        if self._device_lm_beam:
+            from ..decode.adaptive import AdaptiveLMBeam
+            from ..decode.beam_lm_device import make_id_tables
+            from ..lm.cached import CachedLM
+            clm = CachedLM(lm.lm_model, lm.lm_params,
+                           dtype=torch.float32 if lm_f32 else torch.bfloat16,
+                           device=self.device)
+            c2l, l2c = make_id_tables(codec, lm.tokenizer)
+            self._lm_beam = AdaptiveLMBeam(
+                clm, c2l, l2c, beam_size=beam_size, depth=search_depth,
+                unknown_id=codec.unknown_id, lm_panelty=lm_panelty,
+                len_bonus=len_bonus, use_lm_pred=use_lm_pred,
+                group_size=lm_group, lm_ctx=lm_ctx)
 
     def bucket_for(self, width: int) -> int:
         for w in self.widths:
@@ -163,10 +200,18 @@ class ServingEngine:
     def infer_batch(self, batch_u8: np.ndarray) -> List[str]:
         """``(b, H, W, 1)`` uint8 batch -> one text per row."""
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        x = (x.float() - 127.5) / 127.5
-        logits = self.model(x)
+        return self.decode_logits(self.model((x.float() - 127.5) / 127.5))
+
+    @torch.inference_mode()
+    def decode_logits(self, logits: torch.Tensor) -> List[str]:
+        """``(b, T, D)`` f32 logits -> one text per row, on this engine's
+        decode route."""
         unknown_id = self.codec.unknown_id
-        if self.decode_method == "beam-search":
+        if self._device_lm_beam:
+            cv, ci, _, _ = _k1.topk_logsoftmax(logits, k=self.search_depth)
+            logz = torch.logsumexp(logits.float(), dim=-1)
+            chars, lengths = self._lm_beam.decode(cv, ci, logits, logz)
+        elif self.decode_method == "beam-search":
             chars, lengths = beam_search_fused(
                 logits, beam_size=self.beam_size, depth=self.search_depth,
                 unknown_id=unknown_id, blank_id=self.codec.blank_id,

@@ -13,6 +13,11 @@ as nested dicts of numpy arrays (however the caller read it) and returns a
 
 ``seeded_state_dict`` makes full-size random weights from a seed, the only
 way to get weights onto a machine that cannot read the orbax checkpoints.
+
+``lm_flax_to_torch`` and ``seeded_lm_state_dict`` do the same for the char
+LM (``lm/model.CharTransformerLM``): flax attention kernels ``(d, H, Dh)``
+become ``nn.Linear`` weights ``(H*Dh, d)``, the output kernel ``(H, Dh, d)``
+becomes ``(d, H*Dh)``, and ``embed/embedding`` ``(V, d)`` is the tied head.
 """
 
 from __future__ import annotations
@@ -83,6 +88,63 @@ def seeded_state_dict(model: torch.nn.Module,
             out[key] = torch.randn(t.shape, generator=g) / math.sqrt(
                 t[0].numel())
         elif name in ("weight", "running_var"):
+            out[key] = torch.ones(t.shape)
+        else:
+            out[key] = torch.zeros(t.shape)
+    return out
+
+
+def lm_flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``CharTransformerLM`` params (numpy tree, the ``"params"``
+    collection) -> state dict of ``lm/model.CharTransformerLM``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _walk(params):
+        a = _to_f32(leaf)
+        *mod, name = path
+        if path == ("embed", "embedding"):
+            key = "embed.weight"
+        elif path == ("pos_embed",):
+            key = "pos_embed"
+        elif name == "kernel":
+            if mod[-2:-1] == ["attn"] and mod[-1] != "out":
+                a = a.reshape(a.shape[0], -1).T        # (d, H, Dh) -> (HDh, d)
+            elif mod[-2:] == ["attn", "out"]:
+                a = a.reshape(-1, a.shape[-1]).T       # (H, Dh, d) -> (d, HDh)
+            elif a.ndim == 2:
+                a = a.T                                # (I, O) -> (O, I)
+            else:
+                raise ValueError(f"unexpected kernel {'/'.join(path)}: "
+                                 f"{a.shape}")
+            key = ".".join([*mod, "weight"])
+        elif name == "bias":
+            key, a = ".".join([*mod, "bias"]), a.reshape(-1)
+        elif name == "scale":
+            key = ".".join([*mod, "weight"])
+        else:
+            raise ValueError(f"unexpected LM parameter {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def seeded_lm_state_dict(config: Mapping,
+                         seed: int) -> Dict[str, torch.Tensor]:
+    """Random f32 weights for a ``CharTransformerLM`` of ``config`` from a
+    ``torch.Generator`` seed, after flax's initialisers: embedding ~
+    N(0, 1/d), dense and attention weights ~ N(0, 1/fan_in), positional
+    embedding ~ N(0, 0.02^2), biases 0, LayerNorm at identity."""
+    from ..lm.model import CharTransformerLM
+    shapes = CharTransformerLM(**config).state_dict()
+    g = torch.Generator().manual_seed(int(seed))
+    out = {}
+    for key, t in shapes.items():
+        name = key.rsplit(".", 1)[-1]
+        if key == "pos_embed":
+            out[key] = torch.randn(t.shape, generator=g) * 0.02
+        elif name == "weight" and t.dim() == 2:
+            # (out, in): fan_in is the row length, the embedding's d too
+            out[key] = torch.randn(t.shape, generator=g) / math.sqrt(
+                t.shape[1])
+        elif name == "weight":
             out[key] = torch.ones(t.shape)
         else:
             out[key] = torch.zeros(t.shape)
