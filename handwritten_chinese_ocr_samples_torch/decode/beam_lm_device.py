@@ -46,8 +46,8 @@ from .beam_device import (_DEAD, _DEAD_KEY, _H1_SEED, _H2_SEED, NEG_INF,
 
 _SKIP_SLICE = ("not ported yet: the skip search (-ss) with its run phase, "
                "segment budget, peek-row compaction, context ladder and "
-               "fused commit (ROADMAP.md queue 1, item 7)")
-_DENSE = ("not ported yet: the dense LM merge (ROADMAP.md queue 1, item 7); "
+               "fused commit (ROADMAP.md queue 1, item 2)")
+_DENSE = ("not ported yet: the dense LM merge (ROADMAP.md queue 1, item 2); "
           "the port's LM search uses the sort merge")
 
 

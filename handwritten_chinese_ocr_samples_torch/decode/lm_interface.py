@@ -6,7 +6,7 @@ runs: ``lm_model`` (a ``lm/model.CharTransformerLM``), ``lm_params`` (its
 state dict) and ``tokenizer``. The serving engine tells a transformer LM
 apart by ``hasattr(lm, "lm_model")``, as the JAX engine does. The host
 scorer (``lm/infer.LMScorer``), the KenLM n-gram backend and the host beam
-that uses them are later work (ROADMAP.md queue 1, item 14).
+that uses them are later work (ROADMAP.md queue 1, item 3).
 """
 
 from __future__ import annotations

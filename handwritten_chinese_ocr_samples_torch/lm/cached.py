@@ -43,7 +43,7 @@ class CachedLM:
         if quant_int8:
             raise NotImplementedError(
                 "not ported yet: int8 LM matmuls (ROADMAP.md queue 1, "
-                "item 10)")
+                "item 5)")
         if not model.tie_embeddings:
             raise ValueError("CachedLM scores with the tied embedding; this "
                              "LM has a separate head")

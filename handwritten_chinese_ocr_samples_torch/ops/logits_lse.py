@@ -25,18 +25,25 @@ import torch
 # Launches of the CUDA kernel in this process (the plain version adds none).
 launches = 0
 
-_ROWS_PER_BLOCK = 64     # csrc/lse_rows.cu TR
-_VOCAB_PER_TILE = 64     # csrc/lse_rows.cu TV
-_BLOCKS_PER_SM = 4       # vocabulary splits aim at this many blocks per SM
+# csrc/lse_rows.cu: the tensor-core path (bf16) takes 128 rows x 256
+# vocabulary entries a tile, one block per SM; the SIMT path 64 x 64, about
+# 4 blocks per SM
+_TC_ROWS = 128
+_TC_V = 256
+_TC_MAX_D = 512
+_SIMT_TILE = 64
+_SIMT_BLOCKS_PER_SM = 4
 
 
-def _kernel():
+def _kernels():
     from . import _build
-    fn = _build.load("lse_rows").hctr_lse_rows
+    lib = _build.load("lse_rows")
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 5 + [ctypes.c_int] * 6 + [ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    simt, tc = lib.hctr_lse_rows, lib.hctr_lse_rows_tc
+    simt.argtypes = [ptr] * 5 + [ctypes.c_int] * 6 + [ptr]
+    tc.argtypes = [ptr] * 5 + [ctypes.c_int] * 5 + [ptr]
+    simt.restype = tc.restype = ctypes.c_int
+    return simt, tc
 
 
 def lse_rows_plain(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -45,20 +52,33 @@ def lse_rows_plain(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(x.float() @ emb.float().T, dim=-1)
 
 
-def _splits(rows: int, V: int, n_sm: int):
-    """``(v_per_split, n_split)``: vocabulary ranges of whole tiles, enough
-    of them to give about ``_BLOCKS_PER_SM`` blocks per SM, none empty."""
-    n_rt = -(-rows // _ROWS_PER_BLOCK)
-    n_vt = -(-V // _VOCAB_PER_TILE)
-    want = max(1, min(n_vt, -(-_BLOCKS_PER_SM * n_sm // n_rt)))
-    v_per_split = -(-n_vt // want) * _VOCAB_PER_TILE
+def plan_splits(rows: int, V: int, n_sm: int, tile_rows: int, tile_v: int,
+                blocks_per_sm: int):
+    """``(v_per_split, n_split)``: the vocabulary cut into ranges of whole
+    ``tile_v`` tiles, as many as fit ``blocks_per_sm`` blocks on each of
+    ``n_sm`` SMs beside the ``rows / tile_rows`` row tiles (at least one),
+    none empty. Range ``s`` is ``[s * v_per_split, min(V, (s + 1) *
+    v_per_split))``."""
+    n_rt = -(-rows // tile_rows)
+    n_vt = -(-V // tile_v)
+    want = max(1, min(n_vt, blocks_per_sm * n_sm // n_rt))
+    v_per_split = -(-n_vt // want) * tile_v
     return v_per_split, -(-V // v_per_split)
+
+
+def _tensor_core_path(x: torch.Tensor, emb: torch.Tensor) -> bool:
+    """bf16 inputs that TMA can read: rows of a multiple of 16 bytes, 16-byte
+    aligned, and an x tile that fits shared memory."""
+    d = x.shape[-1]
+    return (x.dtype == torch.bfloat16 and d % 8 == 0 and d <= _TC_MAX_D
+            and x.data_ptr() % 16 == 0 and emb.data_ptr() % 16 == 0)
 
 
 def lse_rows(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """``logsumexp(x @ emb.T, -1)`` for ``x (..., d)`` and ``emb (V, d)``,
-    f32 ``(...)``. A CUDA tensor goes through the kernel (or raises), a CPU
-    tensor through the plain version."""
+    f32 ``(...)``. A CUDA tensor goes through the kernel (or raises): bf16
+    that TMA can read on the tensor cores, the rest on the SIMT units. A
+    CPU tensor goes through the plain version."""
     if emb.dim() != 2 or x.shape[-1] != emb.shape[1]:
         raise ValueError(f"expected x (..., d) and emb (V, d), got "
                          f"{tuple(x.shape)} / {tuple(emb.shape)}")
@@ -78,17 +98,27 @@ def lse_rows(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     if rows == 0 or V == 0:
         return out.fill_(float("-inf") if V == 0 else 0.0)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    v_per_split, n_split = _splits(rows, V, n_sm)
+    tc = _tensor_core_path(x, emb)
+    if tc:
+        v_per_split, n_split = plan_splits(rows, V, n_sm, _TC_ROWS, _TC_V, 1)
+    else:
+        v_per_split, n_split = plan_splits(rows, V, n_sm, _SIMT_TILE,
+                                           _SIMT_TILE, _SIMT_BLOCKS_PER_SM)
     pm = torch.empty((rows, n_split), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
-    kernel = _kernel()
+    simt, tc_kernel = _kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = kernel(x.data_ptr(), emb.data_ptr(), pm.data_ptr(),
-                    pl.data_ptr(), out.data_ptr(), rows, V, d, v_per_split,
-                    n_split, int(x.dtype == torch.bfloat16), stream)
+        args = (x.data_ptr(), emb.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                out.data_ptr(), rows, V, d, v_per_split, n_split)
+        if tc:
+            rc = tc_kernel(*args, stream)
+        else:
+            rc = simt(*args, int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
-        raise RuntimeError(f"lse_rows kernel launch failed: cudaError {rc}")
+        raise RuntimeError("lse_rows kernel launch failed: "
+                           + ("no TMA descriptor" if rc == -1
+                              else f"cudaError {rc}"))
     global launches
     launches += 1
     return out

@@ -9,9 +9,11 @@ own-row part.
 
 On a CUDA tensor ``peek_cache_attention`` launches
 ``csrc/peek_attention.cu``, which replaces the JAX package's Pallas kernel
-(``handwritten_chinese_ocr_samples_tpu/ops/peek_attention.py:70``); on a CPU
-tensor it runs ``peek_cache_attention_plain``, the JAX package's XLA oracle
-written in PyTorch.
+(``handwritten_chinese_ocr_samples_tpu/ops/peek_attention.py:70``): bf16
+caches with a head size of 64 on the tensor cores, the rest on the SIMT
+units, both reading the cache in 64-key tiles, so any cache depth L
+launches. On a CPU tensor it runs ``peek_cache_attention_plain``, the JAX
+package's XLA oracle written in PyTorch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ NEG = -1e30
 
 # Launches of the CUDA kernel in this process (the plain version adds none).
 launches = 0
+
+_MAX_DH = 128    # csrc/peek_attention.cu S_MAX_DH
 
 
 def _kernel():
@@ -76,6 +80,10 @@ def peek_cache_attention(q, k_cache, v_cache, lengths):
         raise TypeError("lengths must be int32")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, lengths)):
         raise ValueError("all operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("q and caches must be 16-byte aligned")
+    if Dh > _MAX_DH:
+        raise ValueError(f"head size {Dh} above {_MAX_DH}")
     dev = q.device
     o = torch.empty((B, N, H, Dh), dtype=torch.float32, device=dev)
     m = torch.empty((B, N, H), dtype=torch.float32, device=dev)

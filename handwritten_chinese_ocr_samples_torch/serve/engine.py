@@ -33,12 +33,12 @@ from ..ops.decode import greedy_decode_device
 
 # Routes of the JAX engine that later slices port (ROADMAP.md, queue 1).
 _LATER = {
-    "skip_search": "skip search (ROADMAP.md queue 1, items 7 and 14: the "
+    "skip_search": "skip search (ROADMAP.md queue 1, items 2 and 3: the "
                    "LM-fused search and the host beam search)",
     "host_beam": "the host beam search, which serves -utp without -uts and "
-                 "a KenLM n-gram (ROADMAP.md queue 1, item 14)",
+                 "a KenLM n-gram (ROADMAP.md queue 1, item 3)",
     "int8": "int8 serving and int8 LM matmuls (ROADMAP.md queue 1, "
-            "item 10)",
+            "item 5)",
 }
 
 
@@ -139,8 +139,9 @@ class ServingEngine:
         use_beam = decode_method == "beam-search"
         # routing as in the JAX engine: a transformer LM (it has lm_model)
         # with LM scoring takes the LM-fused device search; LM scoring
-        # without one, LM proposals without scoring, and any other LM (a
-        # KenLM n-gram) belong to the host beam
+        # without one, and LM proposals without scoring, belong to the host
+        # beam; an LM that is neither scored nor proposing is ignored, and
+        # the plain device beam serves
         is_tfm = lm is not None and hasattr(lm, "lm_model")
         self._device_lm_beam = use_beam and use_lm_score and is_tfm
         if int8 or (self._device_lm_beam and lm_int8):
@@ -149,8 +150,7 @@ class ServingEngine:
             raise NotImplementedError(
                 f"not ported yet: {_LATER['skip_search']}")
         if use_beam and not self._device_lm_beam and (
-                use_lm_score or (lm is not None
-                                 and (use_lm_pred or not is_tfm))):
+                use_lm_score or (lm is not None and use_lm_pred)):
             raise NotImplementedError(
                 f"not ported yet: {_LATER['host_beam']}")
         self.device = torch.device(device)

@@ -71,6 +71,30 @@ def test_peek_attention_matches_jax(dtype):
         (o[0] == 0).all()                      # the empty cache
 
 
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_peek_attention_deep_cache_matches_jax(dtype):
+    """A 512-position cache (the largest ``STABLE_CTX``), lengths at the
+    edges of the CUDA kernel's 64-key tiles, and N not a multiple of 16."""
+    rng = np.random.default_rng(12)
+    B, N, H, Dh, L = 6, 5, 2, 8, 512
+    q = (rng.normal(size=(B, N, H, Dh)) / Dh ** 0.5).astype(dtype)
+    k = rng.normal(size=(B, L, H, Dh)).astype(dtype)
+    v = rng.normal(size=(B, L, H, Dh)).astype(dtype)
+    lengths = np.asarray([0, 1, 63, 64, 65, 512], np.int32)
+    got = k2.peek_cache_attention(_t(q), _t(k), _t(v), _t(lengths))
+    tol = F32_TOL if dtype == np.float32 else BF16_TOL
+    args = [jnp.asarray(a) for a in (q, k, v, lengths)]
+    for want in (jk2.peek_cache_attention(*args, interpret=True),
+                 jk2.peek_cache_attention_xla(*args)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                       atol=tol)
+    o, m, lsum = got
+    assert (m[0] == -1e30).all() and (lsum[0] == 0).all() and \
+        (o[0] == 0).all()                      # the empty cache
+    assert (lsum[1] == 1).all()               # one key: its weight is 1
+
+
 def test_merge_and_combine_partials_match_jax():
     rng = np.random.default_rng(4)
     shape = (3, 5, 2)
@@ -113,6 +137,45 @@ def test_lse_rows_and_target_logit_match_jax(shape, V, d):
                                    atol=F32_TOL)
     np.testing.assert_allclose(tgt_t.numpy(), np.asarray(want_t),
                                rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_lse_rows_lm_vocabulary_matches_jax():
+    """The served LM's vocabulary and width (V = 7377, d = 512), with 37
+    rows: neither a multiple of the CUDA kernel's 128-row nor of its
+    128-entry vocabulary tile."""
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(37, 512)).astype(np.float32)
+    emb = (rng.normal(size=(7377, 512)) / 512 ** 0.5).astype(np.float32)
+    got = k3.lse_rows(_t(x), _t(emb))
+    want = jk3.lse_rows(jnp.asarray(x), jnp.asarray(emb), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+@pytest.mark.parametrize("V", [130, 777, 7375, 7377])
+@pytest.mark.parametrize("rows,tile_rows,tile_v,blocks_per_sm", [
+    (2520, 128, 256, 1), (37, 128, 256, 1), (2520, 64, 64, 4),
+    (50000, 128, 256, 1)])
+def test_lse_rows_vocabulary_splits_cover_v(V, rows, tile_rows, tile_v,
+                                            blocks_per_sm):
+    """The K3 wrapper's vocabulary ranges (the tensor-core path's tiles,
+    then the SIMT path's): whole tiles, none empty, covering [0, V)
+    exactly, and no more blocks than fit the SMs unless the row tiles
+    alone do not."""
+    n_sm = 132
+    v_per_split, n_split = k3.plan_splits(rows, V, n_sm, tile_rows, tile_v,
+                                          blocks_per_sm)
+    assert v_per_split % tile_v == 0 and n_split >= 1
+    ranges = [(s * v_per_split, min(V, (s + 1) * v_per_split))
+              for s in range(n_split)]
+    assert all(lo < hi for lo, hi in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == V
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    n_rt = -(-rows // tile_rows)
+    if n_rt <= blocks_per_sm * n_sm:
+        assert n_rt * n_split <= blocks_per_sm * n_sm
+    else:
+        assert n_split == 1
 
 
 def test_lse_rows_bf16_inputs():

@@ -126,7 +126,7 @@ def test_unported_routes_raise(demo):
     variables, _ = demo
     model, chars = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)
-    for kw in (dict(use_lm_score=True), dict(lm=object()),
+    for kw in (dict(use_lm_score=True), dict(lm=object(), use_lm_pred=True),
                dict(skip_search=True), dict(int8=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(model, sd, CTCCodec(chars), device="cpu",
