@@ -11,9 +11,9 @@ beam route with the full-width char LM, and checks what comes out. Every
 phase prints one JSON line; any failed check raises, so the exit code is
 non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
-``--kernels`` runs only the build and the K2-K4 phase, on a seeded frame of
-the served LM route's shapes, timing the kernels before checking them; it
-prints no ``ok`` line.
+``--kernels`` runs only the build and the kernel phases: K1 at the shapes
+of ``K1_SHAPES`` and K2-K4 on a seeded frame of the served LM route's
+shapes, timing the kernels before checking them; it prints no ``ok`` line.
 
 It needs a CUDA card and the repository around it: without either it fails
 before printing any result. TF32 is switched off for convolutions and matrix
@@ -63,6 +63,10 @@ F32_OPS_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 K1_OPS_PER_LOGIT = 8           # max, sub, exp, add, sub, compare, add, top-K compare
 K1_TOL = 1e-5                  # |vals|, |blank| vs plain: f32 sums in another order
+K1_CLASSES = 7375
+# K1 timed at (B, T): the smoke's shape, the beam route's widest and a
+# narrower bucket, and the LM route's batch
+K1_SHAPES = ((8, 1024), (4, 1600), (4, 512), (4, 128))
 FWD_TOL = 1e-4                 # f32 forward, card vs CPU: conv sums in another order
 # K2 on bf16 inputs: f32 sums in another order move the scores by ~1e-6, and
 # a weight that lands on the other side of a bf16 rounding step moves o by
@@ -161,52 +165,126 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def compare_k1(x: torch.Tensor, k: int = SEARCH_DEPTH) -> float:
     """K1 against its plain version on the same card tensor; returns the
-    largest |difference| of vals and blank."""
+    largest |difference| of vals and blank (equal infinities count as 0)."""
     got = k1.topk_logsoftmax(x, k=k)
     want = k1.topk_logsoftmax_plain(x, k=k)
     torch.cuda.synchronize()
     vals, idx, blank, n_above = got
     pv, pi, pb, pn = want
-    shape = tuple(x.shape)
-    check(torch.equal(idx, pi), f"K1 idx differs at {shape}")
-    err = max((vals - pv).abs().max().item(), (blank - pb).abs().max().item())
-    check(err <= K1_TOL, f"K1 vals/blank differ by {err} at {shape}")
+    what = (tuple(x.shape), str(x.dtype), k)
+    check(torch.equal(idx, pi), f"K1 idx differs at {what}")
+
+    def diff(a, b):
+        return torch.where(a == b, 0.0, (a - b).abs()).max().item()
+    err = max(diff(vals, pv), diff(blank, pb))
+    check(err <= K1_TOL, f"K1 vals/blank differ by {err} at {what}")
     # rows with a class within K1_TOL of the prune threshold may count it
     # either way
-    logp = torch.log_softmax(x, dim=-1)
+    logp = torch.log_softmax(x.float(), dim=-1)
     edge = ((logp - k1.PRUNE).abs() <= K1_TOL).any(-1)
-    check(torch.equal(n_above[~edge], pn[~edge]), f"K1 n_above differs at {shape}")
+    check(torch.equal(n_above[~edge], pn[~edge]),
+          f"K1 n_above differs at {what}")
     return err
 
 
-def phase_kernels(dev: torch.device):
+def k1_bound(x: torch.Tensor, k: int):
+    """(bound ms, bound by) of K1: each logit read once, vals and idx, blank
+    and n_above written once; K1_OPS_PER_LOGIT f32 operations a logit."""
+    D = x.shape[-1]
+    rows = x.numel() // D
+    return bound_ms(x.numel() * x.element_size() + rows * k * 8 + rows * 8,
+                    rows * D * K1_OPS_PER_LOGIT, F32_OPS_PER_S)
+
+
+def k1_time(x: torch.Tensor, k: int = SEARCH_DEPTH) -> dict:
+    """K1 timed by ``device_ms`` beside its plain version, its bound and the
+    library call ``topk(log_softmax(x))``."""
+    bms, by = k1_bound(x, k)
+    return {"shape": list(x.shape), "dtype": str(x.dtype), "k": k,
+            "ms": device_ms(lambda: k1.topk_logsoftmax(x, k=k)),
+            "plain_ms": device_ms(lambda: k1.topk_logsoftmax_plain(x, k=k)),
+            "library_ms": device_ms(lambda: torch.topk(
+                torch.log_softmax(x.float(), dim=-1), k, dim=-1)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def k1_times(dev) -> dict:
+    """K1 in f32 at the shapes of ``K1_SHAPES`` (K = 10), at the first of
+    them also with K = 1 (the top-K's share), K = 32 (the fast path's
+    largest) and K = 33 (the general path), and there the time of a plain
+    streaming read of the logits (``amax`` over the class axis), which
+    bounds what a kernel that reads them once reaches under ``device_ms``."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for B, T in K1_SHAPES:
+        x = torch.randn((B, T, K1_CLASSES), device=dev, generator=g)
+        out[f"{B}x{T}"] = k1_time(x)
+        if (B, T) == K1_SHAPES[0]:
+            for k in (1, 32, 33):
+                out[f"{B}x{T}_k{k}"] = k1_time(x, k)
+            out["amax_ms"] = device_ms(lambda: x.amax(-1))
+    return out
+
+
+def k1_cases(dev) -> list:
+    """(logits, K) edge cases of K1, f32; every one is checked in bf16 too."""
     g = torch.Generator(device=dev).manual_seed(0)
-    D = 7375
-    errs = []
-    for shape in [(8, 1024, D), (3, 1600, D)]:
-        errs.append(compare_k1(torch.randn(shape, device=dev, generator=g)))
+    D = K1_CLASSES
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
     # ties: values on a coarse grid repeat the maximum within most rows, and
     # the first rows of each sample are constant
     ties = torch.randint(0, 6, (4, 256, D), device=dev, generator=g).float()
     ties[:, :8] = 1.5
-    errs.append(compare_k1(ties))
+    # -inf: each row keeps 5 finite classes at random places
+    neg = randn(2, 8, 300)
+    keep = torch.rand((2, 8, 300), device=dev, generator=g).argsort(-1) < 5
+    neg[~keep] = -float("inf")
+    wide_neg = randn(1, 4, D)
+    wide_neg[..., 7:] = -float("inf")
+    cases = [
+        (randn(*K1_SHAPES[0], D), SEARCH_DEPTH),
+        (randn(3, 1600, D), SEARCH_DEPTH),
+        (ties, SEARCH_DEPTH), (ties[:1, :64], 20),
+        (randn(1, 9, D), SEARCH_DEPTH),          # every row alignment
+        (randn(3, 5, D)[1:], SEARCH_DEPTH),      # data_ptr 12 bytes off 16
+        (randn(2, 9, 20), 5), (randn(2, 3, 1), 1),
+        (randn(2, 5, 16), 16), (randn(2, 5, 40), 40),    # K = D
+        (randn(4, 64, D), 33), (randn(2, 8, D), 64),     # general path
+        (torch.full((2, 4, D), 0.25, device=dev), SEARCH_DEPTH),  # all tie
+        (torch.full((1, 3, 50), 0.25, device=dev), 50),
+        (neg, 10), (neg, 20), (wide_neg, SEARCH_DEPTH), (wide_neg, 30),
+    ]
+    return cases
 
-    B, T = 8, 1024
-    x = torch.randn((B, T, D), device=dev, generator=g)
-    ms = device_ms(lambda: k1.topk_logsoftmax(x, k=SEARCH_DEPTH))
-    plain_ms = device_ms(lambda: k1.topk_logsoftmax_plain(x, k=SEARCH_DEPTH))
-    library_ms = device_ms(
-        lambda: torch.topk(torch.log_softmax(x, dim=-1), SEARCH_DEPTH, dim=-1))
-    rows = B * T
-    bytes_moved = rows * D * 4 + rows * SEARCH_DEPTH * 8 + rows * 8
-    ops = rows * D * K1_OPS_PER_LOGIT
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    timing = {"shape": [B, T, D], "k": SEARCH_DEPTH, "kernel_ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_us": max(t_bytes, t_ops) * 1e6,
-              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    emit({"phase": "kernels", "max_abs_err": max(errs), **timing})
-    return max(errs), timing
+
+def k1_errors(dev) -> tuple:
+    """K1 held against its plain version on the edge cases (f32 and bf16,
+    fast and general path); returns the largest error and the bf16 time at
+    the first shape of ``K1_SHAPES``."""
+    before = dict(k1.launches_by_path)
+    errs = []
+    for x, k in k1_cases(dev):   # and in bf16 from the same values
+        errs.append(max(compare_k1(x, k), compare_k1(x.bfloat16(), k)))
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((3, 9, K1_CLASSES), device=dev, generator=g).bfloat16()
+    errs.append(compare_k1(x[1:], SEARCH_DEPTH))  # data_ptr 14 bytes off 16
+    for path in ("fast", "general"):
+        check(k1.launches_by_path[path] > before[path],
+              f"K1's {path} path never launched")
+    x = torch.randn((*K1_SHAPES[0], K1_CLASSES), device=dev, generator=g)
+    return max(errs), k1_time(x.bfloat16())
+
+
+def phase_kernels(dev, times: dict | None = None):
+    """K1 timed at the shapes of ``K1_SHAPES`` (unless ``times`` were taken
+    already) and held against its plain version on edge cases."""
+    times = times or k1_times(dev)
+    err, bf16 = k1_errors(dev)
+    emit({"phase": "kernels", "max_abs_err": err, "bf16": bf16, **times})
+    return err, times["x".join(map(str, K1_SHAPES[0]))]
 
 
 def recognizer():
@@ -940,8 +1018,11 @@ def main() -> int:
     info = _build.build_all()      # one nvcc per source, all together
     emit({"phase": "build", "libraries": info,
           "wall_s": time.perf_counter() - t0})
-    if "--kernels" in sys.argv[1:]:  # K2-K4 alone, on a synthetic frame
+    if "--kernels" in sys.argv[1:]:  # K1-K4 alone, times before checks
+        times = k1_times(dev)
+        emit({"phase": "k1_times", **times})
         phase_lm_kernels(dev, synthetic_frame(dev), times_first=True)
+        phase_kernels(dev, times)
         return 0
 
     k_err, timing = phase_kernels(dev)
@@ -955,8 +1036,8 @@ def main() -> int:
         "replaces": "handwritten_chinese_ocr_samples_tpu/ops/topk_logsoftmax.py:67",
         "launches": launches + lm_counts["topk_logsoftmax"],
         "max_abs_err": max(k_err, serve_err),
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_us"] / 1e3, "bound_by": timing["bound_by"],
+        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]
     for kname, src, tpu in (
             ("peek_cache_attention", "peek_attention.cu",
