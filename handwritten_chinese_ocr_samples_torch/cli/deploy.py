@@ -3,7 +3,7 @@
     python -m handwritten_chinese_ocr_samples_torch.cli.deploy \\
         -m <weights.pt | seed:<n>> -i <image or folder> [-dm beam-search] \\
         [-b 4] [--daemon] [-cl chars_list.txt] [-d cuda] \\
-        [-utp -uts -tp <lm dir | seed:<n>>]
+        [-utp -uts -tp <lm dir | seed:<n>> [-ss]]
 
 ``-m`` takes a torch state dict saved with ``torch.save`` (for example
 ``utils.weights.flax_to_torch`` of a JAX checkpoint, converted where JAX is
@@ -11,9 +11,11 @@ installed) or ``seed:<n>``, random full-size weights from a seed. ``-tp``
 takes an LM directory (``config.json``, ``dict.txt``, ``weights.pt``) or
 ``seed:<n>``, the ``char-512x6`` LM with random weights over the ``-cl``
 characters; ``-dm beam-search -uts -tp ...`` serves the LM-fused device
-search. The flags are the JAX CLI's; those of routes the port does not have
-yet (skip search, the host beam, int8) stop with an error that names the
-ROADMAP item.
+search, and ``-ss`` its skip search (the production LM route; ``--prune``,
+``--seg-budget``, ``--run-max``, ``--ctx-ladder`` and ``--fused-commit``
+size it). The flags are the JAX CLI's; those of routes the port does not
+have yet (the host beam, which also serves ``-ss`` without a transformer
+LM, and int8) stop with an error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,10 +28,6 @@ import sys
 # flag -> (default, route): a flag set to anything but its default asks for
 # a route the port does not have yet (keys of ``serve.engine._LATER``)
 _UNPORTED = {
-    "skip_search": (False, "skip_search"), "prune": (0.001, "skip_search"),
-    "seg_budget": (0, "skip_search"), "run_max": (8, "skip_search"),
-    "ctx_ladder": (112, "skip_search"),
-    "fused_commit": (False, "skip_search"),
     "kenlm_path": ("", "host_beam"),
     "lm_int8": (False, "int8"), "int8": (False, "int8"),
 }
@@ -91,20 +89,27 @@ def build_argparser():
                       default=8)
     args.add_argument("--lm-f32", dest="lm_f32", action="store_true",
                       help="run the LM in f32 (default bf16)")
+    args.add_argument("-ss", "--skip-search", action="store_true",
+                      help="the skip search: confident frames skip the "
+                           "candidate search (needs -uts -tp)")
+    args.add_argument("--seg-budget", dest="seg_budget", type=int, default=0,
+                      help="skip search: segments a line (0 = auto)")
+    args.add_argument("--run-max", dest="run_max", type=int, default=8,
+                      help="skip search: char-fast frames a segment")
+    args.add_argument("--prune", dest="prune", type=float, default=0.001,
+                      metavar="P", help="skip search: a frame with more or "
+                      "fewer than one class above probability P is searched")
+    args.add_argument("--ctx-ladder", dest="ctx_ladder", type=int,
+                      default=112, help="skip search: first-rung KV depth "
+                      "of the context ladder (0 = off)")
+    args.add_argument("--fused-commit", dest="fused_commit",
+                      action="store_true", help="skip search: write a run's "
+                      "tokens with the next reorder")
     later = parser.add_argument_group(
-        "Not ported yet", "skip-search, host-beam and int8 routes "
-        "(ROADMAP.md); setting any of these stops with an error")
-    later.add_argument("-ss", "--skip-search", action="store_true")
+        "Not ported yet", "host-beam and int8 routes (ROADMAP.md); setting "
+        "any of these stops with an error")
     later.add_argument("-kp", "--kenlm-path", dest="kenlm_path", type=str,
                        default="")
-    later.add_argument("--seg-budget", dest="seg_budget", type=int, default=0)
-    later.add_argument("--run-max", dest="run_max", type=int, default=8)
-    later.add_argument("--prune", dest="prune", type=float, default=0.001,
-                       metavar="P")
-    later.add_argument("--ctx-ladder", dest="ctx_ladder", type=int,
-                       default=112)
-    later.add_argument("--fused-commit", dest="fused_commit",
-                       action="store_true")
     later.add_argument("--lm-int8", dest="lm_int8", action="store_true")
     later.add_argument("--int8", dest="int8", action="store_true")
     return parser
@@ -138,12 +143,15 @@ def main(argv=None):
     unported = {k: route for k, (default, route) in _UNPORTED.items()
                 if getattr(args, k) != default}
     # the port serves the LM through the device search only: LM scoring
-    # with a transformer (-uts -tp); -utp alone and -uts without an LM are
-    # the host beam's
+    # with a transformer (-uts -tp); -utp alone, -uts without an LM and a
+    # beam search with -ss but no such LM are the host beam's
     use_tfm = args.use_tfm_pred or args.use_tfm_score
-    if use_tfm and not (args.use_tfm_score and args.tfm_path):
+    device_lm = args.use_tfm_score and bool(args.tfm_path)
+    if use_tfm and not device_lm:
         unported["use_tfm_pred" if args.use_tfm_pred else
                  "use_tfm_score"] = "host_beam"
+    if args.skip_search and args.method == "beam-search" and not device_lm:
+        unported["skip_search"] = "host_beam"
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)}: "
                      + "; ".join(sorted({_LATER[r]
@@ -165,8 +173,11 @@ def main(argv=None):
         decode_method=args.method, beam_size=args.beam_size,
         search_depth=args.search_depth, lm_panelty=args.lm_panelty,
         len_bonus=args.len_bonus, lm=lm, use_lm_pred=args.use_tfm_pred,
-        use_lm_score=args.use_tfm_score, lm_ctx=args.lm_ctx,
-        lm_group=args.lm_group, lm_f32=args.lm_f32, device=args.device)
+        use_lm_score=args.use_tfm_score, skip_search=args.skip_search,
+        lm_ctx=args.lm_ctx, lm_group=args.lm_group,
+        seg_budget=args.seg_budget, run_max=args.run_max,
+        ctx_ladder=args.ctx_ladder, fused_commit=args.fused_commit,
+        lm_f32=args.lm_f32, prune=args.prune, device=args.device)
     log.info(f"Serving {args.language} on {engine.device} "
              f"(widths {widths}, {args.method}"
              f"{', LM ' + args.tfm_path if lm is not None else ''})")

@@ -95,6 +95,14 @@ class CachedLM:
             lengths=torch.zeros((B,), dtype=torch.int32, device=self.device))
 
     @staticmethod
+    def gather(cache: LMCache, idx: torch.Tensor) -> LMCache:
+        """Beam reorder alone (plain indexing): ``new[l, p] =
+        cache[l, idx[p]]``, lengths too."""
+        idx = idx.long()
+        return LMCache(k=cache.k[:, idx], v=cache.v[:, idx],
+                       lengths=cache.lengths[idx])
+
+    @staticmethod
     def gather_write(cache: LMCache, idx: torch.Tensor, k_new: torch.Tensor,
                      v_new: torch.Tensor, wpos: torch.Tensor) -> LMCache:
         """Beam reorder and one-token-per-row write (kernel K4 on the card):

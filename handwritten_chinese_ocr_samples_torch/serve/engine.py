@@ -8,9 +8,11 @@ come back to the host for the string join. Three decode routes:
   * ``beam-search`` (no LM): the fused log-softmax + top-K kernel feeding the
     device prefix beam search (``decode/beam_device``);
   * ``beam-search`` with a transformer LM and ``use_lm_score``: the fused
-    top-K (kernel K1) and the frame log-partition feeding the LM-fused
+    top-K (kernel K1, with its blank log-prob and its count of classes
+    above ``prune``) and the frame log-partition feeding the LM-fused
     device search (``decode/adaptive`` over ``decode/beam_lm_device``,
-    kernels K2-K4), full per-frame search.
+    kernels K2-K4): the skip search with ``skip_search`` (the production
+    route), else the full per-frame search.
 
 Preprocessing parity with the JAX engine: grayscale, resize to the model
 height (area interpolation), fixed width — truncate on the right if wider,
@@ -21,6 +23,7 @@ when a file is read; array input needs no image library.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -33,8 +36,6 @@ from ..ops.decode import greedy_decode_device
 
 # Routes of the JAX engine that later slices port (ROADMAP.md, queue 1).
 _LATER = {
-    "skip_search": "skip search (ROADMAP.md queue 1, items 2 and 3: the "
-                   "LM-fused search and the host beam search)",
     "host_beam": "the host beam search, which serves -utp without -uts and "
                  "a KenLM n-gram (ROADMAP.md queue 1, item 3)",
     "int8": "int8 serving and int8 LM matmuls (ROADMAP.md queue 1, "
@@ -111,10 +112,13 @@ class ServingEngine:
     The weights go to ``device`` once, at construction. ``decode_method`` is
     ``greedy-search`` or ``beam-search``; a beam search with ``lm`` (a
     ``decode/lm_interface.TorchLMBackend``) and ``use_lm_score`` runs the
-    LM-fused device search, with the LM in bf16 unless ``lm_f32``. The JAX
-    engine's host-beam, skip-search and int8 routes raise
-    ``NotImplementedError`` until the port has them; none falls back to
-    another route.
+    LM-fused device search, with the LM in bf16 unless ``lm_f32``, the skip
+    search with ``skip_search`` (``prune`` is its ambiguity threshold, a
+    probability; ``seg_budget``, ``run_max``, ``ctx_ladder`` and
+    ``fused_commit`` are ``decode/adaptive.AdaptiveLMBeam``'s). The JAX
+    engine's host-beam route (which also serves ``skip_search`` without a
+    transformer LM) and int8 routes raise ``NotImplementedError`` until the
+    port has them; none falls back to another route.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict, codec,
@@ -130,27 +134,30 @@ class ServingEngine:
                  skip_search: bool = False,
                  lm_ctx: int = 0,
                  lm_group: int = 8,
+                 seg_budget: int = 0,
+                 run_max: int = 8,
+                 ctx_ladder: int = 112,
+                 fused_commit: bool = False,
                  lm_f32: bool = False,
                  lm_int8: bool = False,
                  int8: bool = False,
+                 prune: float = 0.001,
                  device: str | torch.device = "cuda"):
         if decode_method not in ("greedy-search", "beam-search"):
             raise ValueError(f"unknown decode method {decode_method!r}")
         use_beam = decode_method == "beam-search"
         # routing as in the JAX engine: a transformer LM (it has lm_model)
-        # with LM scoring takes the LM-fused device search; LM scoring
-        # without one, and LM proposals without scoring, belong to the host
-        # beam; an LM that is neither scored nor proposing is ignored, and
-        # the plain device beam serves
+        # with LM scoring takes the LM-fused device search; the skip search
+        # or LM scoring without one, and LM proposals without scoring,
+        # belong to the host beam; an LM that is neither scored nor
+        # proposing is ignored, and the plain device beam serves
         is_tfm = lm is not None and hasattr(lm, "lm_model")
         self._device_lm_beam = use_beam and use_lm_score and is_tfm
         if int8 or (self._device_lm_beam and lm_int8):
             raise NotImplementedError(f"not ported yet: {_LATER['int8']}")
-        if skip_search and use_beam:
-            raise NotImplementedError(
-                f"not ported yet: {_LATER['skip_search']}")
         if use_beam and not self._device_lm_beam and (
-                use_lm_score or (lm is not None and use_lm_pred)):
+                skip_search or use_lm_score
+                or (lm is not None and use_lm_pred)):
             raise NotImplementedError(
                 f"not ported yet: {_LATER['host_beam']}")
         self.device = torch.device(device)
@@ -162,6 +169,7 @@ class ServingEngine:
         self.beam_size = beam_size
         self.search_depth = search_depth
         self.len_bonus = len_bonus
+        self._prune_lp = math.log(prune)
         if self._device_lm_beam:
             from ..decode.adaptive import AdaptiveLMBeam
             from ..decode.beam_lm_device import make_id_tables
@@ -174,7 +182,10 @@ class ServingEngine:
                 clm, c2l, l2c, beam_size=beam_size, depth=search_depth,
                 unknown_id=codec.unknown_id, lm_panelty=lm_panelty,
                 len_bonus=len_bonus, use_lm_pred=use_lm_pred,
-                group_size=lm_group, lm_ctx=lm_ctx)
+                skip_search=skip_search, group_size=lm_group, lm_ctx=lm_ctx,
+                seg_budget=seg_budget, run_max=run_max,
+                ctx_ladder=ctx_ladder, fused_commit=fused_commit,
+                prune=self._prune_lp)
 
     def bucket_for(self, width: int) -> int:
         for w in self.widths:
@@ -208,9 +219,11 @@ class ServingEngine:
         decode route."""
         unknown_id = self.codec.unknown_id
         if self._device_lm_beam:
-            cv, ci, _, _ = _k1.topk_logsoftmax(logits, k=self.search_depth)
+            cv, ci, blank_lp, n_above = _k1.topk_logsoftmax(
+                logits, k=self.search_depth, prune=self._prune_lp)
             logz = torch.logsumexp(logits.float(), dim=-1)
-            chars, lengths = self._lm_beam.decode(cv, ci, logits, logz)
+            chars, lengths = self._lm_beam.decode(cv, ci, logits, logz,
+                                                  blank_lp, n_above)
         elif self.decode_method == "beam-search":
             chars, lengths = beam_search_fused(
                 logits, beam_size=self.beam_size, depth=self.search_depth,

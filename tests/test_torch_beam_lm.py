@@ -155,24 +155,21 @@ def test_selection_hook(setup):
 
 
 def test_unported_knobs_raise(setup):
+    """The dense LM merge (opt-in in the JAX package) and the int8 LM are
+    not ported: the search, its driver and the cached LM refuse them."""
     codec, _, clm, (c2l, l2c) = setup
     kw = dict(KW, unknown_id=codec.unknown_id)
-    for extra in (dict(skip_search=True), dict(peek_rows=8),
-                  dict(ctx_ladder=(8, 32)), dict(fused_commit=True),
-                  dict(dense_merge=True)):
+    for extra in (dict(dense_merge=True),
+                  dict(dense_merge=True, skip_search=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             bl.make_lm_beam_search(clm, c2l, l2c, **kw, **extra)
-    cache = clm.init_cache(2, 8)
-    tokens = torch.zeros((2, 3, 5), dtype=torch.long)
-    for extra in (dict(want_last=True), dict(full_kv=True),
-                  dict(extra_kv=(None, None, None))):
-        with pytest.raises(NotImplementedError, match="skip search"):
-            bl._grouped_peek(clm, cache, tokens, torch.ones((2, 3)),
-                             torch.zeros((2, 12)), **extra)
-    for extra in (dict(skip_search=True), dict(dense_merge=True)):
+    for extra in (dict(dense_merge=True),
+                  dict(dense_merge=True, skip_search=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ad.AdaptiveLMBeam(clm, c2l, l2c, unknown_id=codec.unknown_id,
                               lm_panelty=1.0, len_bonus=1.0, **extra)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CachedLM(clm.model, {}, quant_int8=True)
 
 
 # ------------------------------------------------------ AdaptiveLMBeam
@@ -222,7 +219,7 @@ def test_adaptive_escalates_like_jax(setup, monkeypatch):
 def test_adaptive_pinned_ctx_errors(setup):
     codec, _, clm, (c2l, l2c) = setup
     _, targs = _inputs(_dense_char_line(40, 12, seed=2), 6)
-    kw = dict(AKW, unknown_id=codec.unknown_id)
+    kw = dict(AKW, unknown_id=codec.unknown_id, skip_search=False)
     with pytest.raises(RuntimeError, match="lm-ctx"):
         ad.AdaptiveLMBeam(clm, c2l, l2c, lm_ctx=8, **kw).decode(*targs)
     # sizing told the line is empty: <s> + 12 committed tokens overflow

@@ -226,8 +226,9 @@ def test_cli_deploy_stdin_and_seed_weights(synth, monkeypatch, capsys):
     assert not any(got[f].startswith("ERROR") for f in files)
 
 
-@pytest.mark.parametrize("flag", [["-ss"], ["-uts"], ["-kp", "x.arpa"],
-                                  ["--int8"], ["--prune", "0.01"]])
+@pytest.mark.parametrize("flag", [["-dm", "beam-search", "-ss"], ["-uts"],
+                                  ["-kp", "x.arpa"], ["--int8"],
+                                  ["--lm-int8"]])
 def test_cli_deploy_unported_flags_error(synth, flag, capsys):
     _, test_dir, pt = synth
     with pytest.raises(SystemExit) as e:

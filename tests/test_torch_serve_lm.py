@@ -3,7 +3,9 @@
 ``ServingEngine`` with ``JaxLMBackend``, on the same images and converted
 weights: the committed ``demo/checkpoint`` (hctr-tiny) and a flax-initialised
 tiny char LM, both in f32, full per-frame search. Served texts must be
-identical. Everything runs on the CPU.
+identical. Everything runs on the CPU. The skip search (``-ss``, the
+production LM route) is held the same way, at the reference prune and at a
+calibrated one.
 """
 
 import json
@@ -88,15 +90,17 @@ def _port_engine(demo, widths=WIDTHS, **kw):
                          device="cpu", **opts)
 
 
-def _jax_texts(demo, files, widths=WIDTHS, dtype=jnp.float32):
+def _jax_texts(demo, files, widths=WIDTHS, dtype=jnp.float32, **kw):
     variables, _, chars, jax_lm, _ = demo
     codec = JaxCodec(chars)
     model = FlaxHCTR(num_classes=codec.num_classes, backbone_channels=64,
                      num_blocks=(1, 1, 1, 1), dtype=dtype)
+    opts = dict(BEAM, skip_search=False)
+    opts.update(kw)
     engine = JaxEngine(model, variables, codec, widths=widths,
                        decode_method="beam-search", lm=jax_lm,
-                       use_lm_pred=True, use_lm_score=True,
-                       skip_search=False, lm_f32=True, **BEAM)
+                       use_lm_pred=True, use_lm_score=True, lm_f32=True,
+                       **opts)
     assert engine._device_lm_beam
     return engine.infer_files(files)[0]
 
@@ -138,7 +142,7 @@ def test_unported_lm_routes_raise(demo):
     model, _ = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)
     for kw in (dict(lm=lm, use_lm_pred=True),              # -utp alone
-               dict(lm=lm, use_lm_score=True, skip_search=True),
+               dict(skip_search=True),                     # -ss, no LM
                dict(lm=lm, use_lm_score=True, lm_int8=True),
                dict(use_lm_score=True)):                   # no LM
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -183,7 +187,7 @@ def test_cli_deploy_lm_route_matches_jax(demo, lm_dir, mode):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-ss", "-utp", "-uts", "-tp", "LM"],     # skip search
+    ["-ss"],                                  # skip search without an LM
     ["-utp"], ["-utp", "-tp", "LM"],          # LM proposals alone: host beam
     ["-uts"],                                 # LM scoring without an LM
     ["-uts", "-tp", "LM", "--lm-int8"]])
@@ -197,3 +201,59 @@ def test_cli_deploy_unported_lm_flags_error(lm_dir, demo, flags, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+
+
+# ------------------------------------------------- the skip search (-ss)
+SS = dict(skip_search=True)
+
+
+@pytest.fixture(scope="module")
+def want_ss(demo):
+    return _jax_texts(demo, demo[1], **SS)
+
+
+@pytest.mark.parametrize("prune", [0.001, 0.05])
+def test_engine_ss_route_matches_jax(demo, want_ss, prune):
+    engine = _port_engine(demo, prune=prune, **SS)
+    assert engine._lm_beam.skip and engine._device_lm_beam
+    got, _ = engine.infer_files(demo[1])
+    want = (want_ss if prune == 0.001
+            else _jax_texts(demo, demo[1], prune=prune, **SS))
+    assert got == want and all(want)
+    assert engine.infer_files_batched(demo[1], batch_size=4)[0] == want
+    assert engine._lm_beam._budget >= 16 and engine._lm_beam._peek > 0
+
+
+def test_daemon_ss_route_matches_jax(demo, want_ss):
+    engine = _port_engine(demo, lm_group=2, **SS)
+    with ServingDaemon(engine, batch_size=2, max_delay_ms=30) as daemon:
+        futs = [daemon.submit(f) for f in demo[1]]
+    assert [f.result(timeout=300) for f in futs] == want_ss
+    assert engine._lm_beam.last_group == 2
+
+
+def test_ss_knobs_reach_the_search(demo):
+    engine = _port_engine(demo, seg_budget=40, run_max=4, ctx_ladder=0,
+                          fused_commit=True, prune=0.01, **SS)
+    beam = engine._lm_beam
+    assert (beam._budget, beam._budget_pinned, beam.run_max,
+            beam._ladder_ctx, beam._fused) == (40, True, 4, 0, True)
+    assert beam._kw["prune"] == pytest.approx(np.log(0.01))
+    assert engine._prune_lp == pytest.approx(np.log(0.01))
+
+
+@pytest.mark.parametrize("mode", [[], ["-b", "2", "--daemon"],
+                                  ["--fused-commit", "--seg-budget", "24"]])
+def test_cli_deploy_ss_matches_jax(demo, lm_dir, mode):
+    """``-ss`` through the CLI (bf16 recognizer, one 128 bucket) on the JAX
+    engine's skip-search texts; the fused commit and a pinned segment
+    budget decode the same."""
+    d, pt, images = lm_dir
+    files = [os.path.join(images, f) for f in sorted(os.listdir(images))]
+    want = _jax_texts(demo, files, widths=(128,), dtype=jnp.bfloat16, **SS)
+    got = deploy.main(["-lang", "hctr-tiny", "-m", pt, "-i", images,
+                       "-cl", CHARS, "-w", "128", "-d", "cpu",
+                       "-dm", "beam-search", "-bs", "4", "-sd", "5",
+                       "-lp", "0.7", "-lb", "1.5", "-utp", "-uts", "-tp", d,
+                       "-ss", "--lm-f32", *mode])
+    assert got == want
