@@ -11,8 +11,12 @@ beam route with the full-width char LM (full search, then the skip search,
 ``-ss``), runs the skip search at the JAX bench's config #5 (B 32, T 1200
 peaky posteriors), serves the 150 test lines of ``demo/hard`` with the
 trained weights converted into ``handwritten_chinese_ocr_samples_torch/
-assets/demo_hard`` against the JAX package's committed texts, and checks
-what comes out. Every phase prints one JSON line; any failed check raises,
+assets/demo_hard`` against the JAX package's committed texts, on the device
+routes and on the host beam's (the n-gram skip search, the skip search
+without an LM, and LM proposals alone, with the native decoder built from
+the port's C++ source), runs the port's eval CLI (``cli/test.py -bm``) on
+demo/hard's three commands of ``demo/hard/RESULTS.md``, and checks what
+comes out. Every phase prints one JSON line; any failed check raises,
 so the exit code is non-zero. The last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -111,6 +115,33 @@ RUN_MAX = 8                    # char-fast frames a segment (the default)
 DEMO_HARD = "demo/hard/data"
 DEMO_ASSETS = "handwritten_chinese_ocr_samples_torch/assets/demo_hard"
 LM_HARD_LAYERS = 3
+NGRAM_HARD = "demo/hard/lm/ngram.hblm"
+# The host-beam routes of demo/hard (-lp 0.8 -lb 0.0, recognizer and LM in
+# f32): ServingEngine keywords, "lm" naming the backend; texts.json holds
+# the JAX engine's texts for each under the same key
+HOST_ROUTES = {
+    "ngram_ss": dict(lm="ngram", use_lm_score=True, skip_search=True),
+    "ss_nolm": dict(skip_search=True),
+    "utp": dict(lm="tfm", use_lm_pred=True),
+}
+# LM proposals alone ask the LM once a searched frame: 150 lines took 149 s
+# on an H100 (1.01 lines/s), so the route serves the first 32
+UTP_LINES = 32
+# demo/hard/RESULTS.md's three eval commands, after "-m hctr-tiny -f
+# <weights> -i demo/hard/data -bm -b 8", with the CER it reports
+EVAL_COMMANDS = {
+    "greedy": (["-dm", "greedy-search"], 0.0887),
+    "lm_ss": (["-dm", "beam-search", "-utp", "-uts", "-tp",
+               f"{DEMO_ASSETS}/lm", "-ss", "-lp", "0.8", "-lb", "0.0"], 0.0),
+    "ngram_ss": (["-dm", "beam-search", "-ss", "-kp", NGRAM_HARD, "-lp",
+                  "0.8", "-lb", "0.0"], 0.0015),
+}
+# The eval CER on the card against RESULTS.md's: 7 of the 1375 test
+# characters; bf16 forwards on two backends part at near-ties
+EVAL_CER_TOL = 0.005
+# K2 is held on the eval LM command's first call with a cache this deep
+# (demo/hard's lines hold 7-12 characters): a one-token cache is a copy
+EVAL_K2_DEPTH = 8
 
 
 def emit(obj) -> None:
@@ -412,11 +443,11 @@ def phase_serve(dev: torch.device, model, codec, state):
                 errs.append(compare_k1(logits))
                 pk, lk = beam_search_fused(logits, depth=SEARCH_DEPTH,
                                            unknown_id=codec.unknown_id,
-                                           len_bonus=beam.len_bonus)
+                                           len_bonus=beam.route.len_bonus)
                 v, c, _, _ = k1.topk_logsoftmax_plain(logits, k=SEARCH_DEPTH)
                 pp, lp = beam_search_from_topk(
                     v, c, unknown_id=codec.unknown_id,
-                    len_bonus=beam.len_bonus)
+                    len_bonus=beam.route.len_bonus)
                 check(torch.equal(lk, lp) and torch.equal(pk, pp),
                       f"beam with K1 vs the plain top-K differs at width {w}")
                 check(codec.compact_to_texts(pk.cpu(), lk.cpu())[:n]
@@ -470,8 +501,8 @@ def phase_breakdown(engine: ServingEngine, images, items) -> None:
         join_ms = (time.perf_counter() - t0) * 1e3
         v, c, _, _ = k1.topk_logsoftmax(logits, k=SEARCH_DEPTH)
         beam_ms = cuda_ms(lambda: beam_search_from_topk(
-            v, c, beam_size=engine.beam_size, unknown_id=unk,
-            len_bonus=engine.len_bonus), reps=3, warmup=1)
+            v, c, beam_size=engine.route.beam_size, unknown_id=unk,
+            len_bonus=engine.route.len_bonus), reps=3, warmup=1)
     emit({"phase": "breakdown", "batch": BATCH, "width": w,
           "preprocess_ms_per_image": prep_ms, "d2h_and_join_ms": join_ms,
           "h2d_ms": h2d_ms, "forward_ms_by_width": fwd_ms,
@@ -1110,24 +1141,26 @@ def check_skip_counts(counts: dict, steps: int, batches: int,
 
 @contextlib.contextmanager
 def record_first(wanted: dict, optional=()):
-    """Wrap K2, K3 and K4 in their modules and keep clones of the first
-    inputs for which ``wanted[name](args)`` holds (name: a key of
-    ``launch_counts``, or ``name@tag`` for several shapes of one kernel).
-    Yields the dict they are kept in; every name not in ``optional`` must
-    have been recorded."""
-    mods = {"peek_cache_attention": k2, "lse_rows": k3,
-            "gather_write_kv": k4}
+    """Wrap K1-K4 in their modules and keep clones of the first inputs for
+    which ``wanted[name](args)`` holds (name: a key of ``launch_counts``,
+    or ``name@tag`` for several shapes of one kernel); a call's keyword
+    arguments, where it has any, are kept as a dict after its positional
+    ones. Yields the dict they are kept in; every name not in ``optional``
+    must have been recorded."""
+    mods = {"topk_logsoftmax": k1, "peek_cache_attention": k2,
+            "lse_rows": k3, "gather_write_kv": k4}
     saved = {base: getattr(mods[base], base)
              for base in {key.split("@")[0] for key in wanted}}
     kept = {}
 
     def recorder(base, fn):
-        def rec(*args):
+        def rec(*args, **kw):
             for key, pred in wanted.items():
                 if key.split("@")[0] == base and key not in kept \
                         and pred(args):
-                    kept[key] = tuple(a.clone() for a in args)
-            return fn(*args)
+                    kept[key] = (tuple(a.clone() for a in args)
+                                 + ((dict(kw),) if kw else ()))
+            return fn(*args, **kw)
         return rec
 
     for base, fn in saved.items():
@@ -1194,12 +1227,13 @@ def near_prune_frames(logits: torch.Tensor, prune: float) -> int:
     return int(((logp - prune).abs() <= K1_TOL).any(-1).sum())
 
 
-def k1_exact(logits: torch.Tensor, prune: float, what: str) -> dict:
+def k1_exact(logits: torch.Tensor, prune: float, what: str,
+             k: int = SEARCH_DEPTH) -> dict:
     """K1 against its plain version: top index and ``n_above`` exactly;
     vals and blank within ``K1_TOL`` of the value's size where it is past 1
     (a trained model's log-probs reach -100, where an f32 step is 8e-6)."""
-    got = k1.topk_logsoftmax(logits, k=SEARCH_DEPTH, prune=prune)
-    want = k1.topk_logsoftmax_plain(logits, k=SEARCH_DEPTH, prune=prune)
+    got = k1.topk_logsoftmax(logits, k=k, prune=prune)
+    want = k1.topk_logsoftmax_plain(logits, k=k, prune=prune)
     torch.cuda.synchronize()
     check(torch.equal(got[1], want[1]), f"{what}: K1 idx differs")
     check(torch.equal(got[3], want[3]), f"{what}: K1 n_above differs")
@@ -1413,13 +1447,18 @@ def cer(texts, labels) -> float:
             / sum(len(y) for y in labels))
 
 
+def top2_gap(logits: torch.Tensor) -> float:
+    """The smallest gap between a frame's two largest logits."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1]).min())
+
+
 def min_gap(engine: ServingEngine, logits: torch.Tensor, route: str) -> float:
     """How near a tie one line's decode came: greedy, the smallest gap
     between a frame's two largest logits; the LM search, the smallest gap
     between two adjacent live totals of a step's selection."""
     if route == "greedy":
-        top2 = logits.float().topk(2, dim=-1).values
-        return float((top2[..., 0] - top2[..., 1]).min())
+        return top2_gap(logits)
     gaps = [float((tot[:, :-1] - tot[:, 1:])[tot[:, 1:] > -5e29].min())
             for _, tot, _, _ in selection_trace(engine, logits)
             if bool((tot[:, 1:] > -5e29).any())]
@@ -1491,6 +1530,271 @@ def phase_demo_hard(dev):
     return counts
 
 
+def native_library() -> dict:
+    """Where the native host decoder was loaded from, and proof that it was
+    built from the port's source: the library's name carries the hash of
+    the compiler flags and ``native/cbs_decoder.cc``."""
+    import hashlib
+    info = dict(_build.build_info["host:cbs_decoder"])
+    src = _build.NATIVE / "cbs_decoder.cc"
+    h = hashlib.sha256(" ".join(_build.HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    with open(info["path"], "rb") as f:
+        info["sha256"] = hashlib.sha256(f.read()).hexdigest()
+    info["source"] = str(src.relative_to(_build.NATIVE.parents[1]))
+    check(info["path"] == str(_build._library_path(src, _build.HOST_FLAGS))
+          and h.hexdigest()[:16] in os.path.basename(info["path"]),
+          f"native decoder not built from {src}: {info}")
+    return info
+
+
+def phase_demo_hard_host(dev):
+    """demo/hard's test lines on the host beam's three routes (f32, batch
+    8): the forward and an f32 log-softmax on the card, the posteriors to
+    the host once a batch, the search there (native, or Python with the
+    char LM's proposals from ``LMScorer`` on the card). CER against the
+    labels, lines/s, every line that differs from the JAX engine's texts
+    with its smallest top-2 logit gap (beyond a near-tie it fails), and the
+    n-gram route's time split. No kernel of K1-K4 may launch."""
+    from handwritten_chinese_ocr_samples_torch.decode.lm_interface import (
+        KenLMBackend)
+    with open(os.path.join(DEMO_ASSETS, "texts.json"), encoding="utf-8") as f:
+        committed = json.load(f)
+    with open(os.path.join(DEMO_HARD, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        labels = dict(line.rstrip("\n").split(",", 1) for line in f
+                      if line.strip())
+    files = committed["files"]
+    paths = [os.path.join(DEMO_HARD, "test", name) for name in files]
+    chars_file = os.path.join(DEMO_HARD, "chars_list.txt")
+    chars = load_chars_list(chars_file)
+    state = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
+                       weights_only=True)
+    lms = {"ngram": lambda: KenLMBackend(NGRAM_HARD),
+           "tfm": lambda: TorchLMBackend(*load_lm(os.path.join(
+               DEMO_ASSETS, "lm")), device=dev)}
+    batch = committed["batch"]
+    before = launch_counts()
+    out = {}
+    for route, kw in HOST_ROUTES.items():
+        kw = dict(kw, lm_panelty=0.8, len_bonus=0.0)
+        kw["lm"] = lms[kw["lm"]]() if "lm" in kw else None
+        model, _ = get_model_info("hctr-tiny", chars_list_file=chars_file)
+        engine = ServingEngine(model, state, CTCCodec(chars), widths=WIDTHS,
+                               decode_method="beam-search", device=dev, **kw)
+        native = type(engine._host_beam).__name__ == \
+            "NativeBeamSearchDecoder"
+        check(native == (route != "utp"), f"{route}: decoder "
+              f"{type(engine._host_beam).__name__}")
+        n = UTP_LINES if route == "utp" else len(files)
+        engine.infer_files_batched(paths[:batch], batch_size=batch)  # warm
+        texts, lps = engine.infer_files_batched(paths[:n], batch_size=batch)
+        differ = []
+        for i in (i for i in range(n) if texts[i] != committed[route][i]):
+            _, x = engine.preprocess_bucketed(paths[i])
+            with torch.inference_mode():
+                gap = top2_gap(engine.model(
+                    (torch.from_numpy(x).to(dev).float() - 127.5) / 127.5))
+            differ.append({"file": files[i], "card": texts[i],
+                           "jax": committed[route][i], "min_gap": gap})
+            emit({"phase": "demo_hard_host_difference", "route": route,
+                  **differ[-1]})
+            check(gap < NEAR_TIE, f"demo_hard_host {route}: {files[i]} "
+                  f"differs from the JAX text beyond a near-tie: "
+                  f"{differ[-1]}")
+        truth = [labels[name] for name in files[:n]]
+        out[route] = {"command": committed["host_routes"][route],
+                      "decoder": type(engine._host_beam).__name__,
+                      "lines": n, "cer": cer(texts, truth),
+                      "cer_jax_texts": cer(committed[route][:n], truth),
+                      "lines_per_s": lps, "lines_differing": len(differ)}
+        if route == "ngram_ss":
+            out[route]["split"] = host_split(engine, paths, batch)
+    check(launch_counts() == before, "a K1-K4 kernel launched on the host "
+          "beam's routes")
+    emit({"phase": "demo_hard_host", "model": "hctr-tiny (trained, f32)",
+          "lm": "n-gram demo/hard/lm/ngram.hblm; char 128d/3L (trained, "
+          "f32)", "batch": batch, "widths": list(WIDTHS),
+          "utp_lines": f"the first {UTP_LINES} of {len(files)}: LM "
+          "proposals alone ask the LM once a searched frame, about 1 line/s",
+          "results_md_cer": {"ngram_ss": 0.0015},
+          "native_library": native_library(), **out})
+    return out
+
+
+def host_split(engine: ServingEngine, paths, batch: int) -> dict:
+    """The n-gram route's time split over all lines, batch by batch: the
+    forward + log-softmax (CUDA events), the D2H of the posteriors and the
+    host search (host clock), each in ms a line."""
+    fwd, d2h, search = [], [], []
+    for s in range(0, len(paths), batch):
+        x = np.concatenate([engine.preprocess_bucketed(p)[1]
+                            for p in paths[s:s + batch]])
+        with torch.inference_mode():
+            xs = torch.from_numpy(x).to(engine.device)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logp = torch.log_softmax(
+                engine.model((xs.float() - 127.5) / 127.5).float(), dim=-1)
+            e1.record()
+            e1.synchronize()
+            fwd.append(e0.elapsed_time(e1))
+            t0 = time.perf_counter()
+            host = logp.cpu().numpy()
+            t1 = time.perf_counter()
+            engine._host_beam.decode(host.transpose(1, 0, 2),
+                                     already_log=True)
+            t2 = time.perf_counter()
+        d2h.append((t1 - t0) * 1e3)
+        search.append((t2 - t1) * 1e3)
+    n = len(paths)
+    return {"forward_logsoftmax_ms_a_line": sum(fwd) / n,
+            "d2h_ms_a_line": sum(d2h) / n,
+            "host_search_ms_a_line": sum(search) / n,
+            "posterior_bytes_a_batch": int(host.nbytes)}
+
+
+def eval_near_ties(dev, indices, batch: int) -> dict:
+    """How near a tie each eval line (by its index in the test split) came
+    on the card: its eval batch (the loader keeps the split's order,
+    ``batch`` lines a batch) through the recognizer in f32 and in bf16; the
+    smallest top-2 logit gap of each, and the largest |bf16 - f32| logit of
+    the line, and the frames whose argmax bf16 moved. A line whose f32 gap
+    is below twice that deviation is a bf16 near-tie: there a bf16
+    forward's argmax may go either way."""
+    from handwritten_chinese_ocr_samples_torch.data.bucketing import (
+        AlignCollate, BucketSpec)
+    from handwritten_chinese_ocr_samples_torch.data.dataset import (
+        ImageDataset)
+    state = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
+                       weights_only=True)
+    models = []
+    for dt in (torch.float32, torch.bfloat16):
+        model, _ = get_model_info("hctr-tiny", data_dir=DEMO_HARD, dtype=dt)
+        model.load_state_dict(state)
+        models.append(model.to(dev).eval())
+    h = models[0].img_height
+    ds = ImageDataset(DEMO_HARD, (1, h), "test", batch_size=batch)
+    collate = AlignCollate(imgH=h, PAD=models[0].pad_mode,
+                           bucket_spec=BucketSpec())
+    out = {}
+    for i in indices:
+        first = i // batch * batch
+        x = torch.from_numpy(collate([ds[j] for j in range(
+            first, first + batch)])["images"]).to(dev)
+        with torch.inference_mode():
+            f32, bf16 = (m(x)[i - first].float() for m in models)
+        out[i] = {"gap_f32": top2_gap(f32), "gap_bf16": top2_gap(bf16),
+                  "bf16_dev": (bf16 - f32).abs().max().item(),
+                  "frames_argmax_moved": int(
+                      (f32.argmax(-1) != bf16.argmax(-1)).sum())}
+    return out
+
+
+def phase_eval_demo_hard(dev) -> dict:
+    """The port's eval CLI, as a user runs it (``cli/test.py`` through its
+    ``main(argv)``), on demo/hard's test split with RESULTS.md's three
+    commands, the recognizer in bf16: each CER beside RESULTS.md's (within
+    ``EVAL_CER_TOL``) and beside the JAX eval's at the same command (the
+    committed texts), every line that differs from those texts with its
+    top-2 gaps on the card (beyond a bf16 near-tie it fails), K1-K4
+    launched on the LM command, and each of them held against its plain
+    version on the first inputs that command gave it (K2's first with a
+    cache ``EVAL_K2_DEPTH`` deep). Returns the LM command's launches."""
+    import io
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    with open(os.path.join(DEMO_ASSETS, "texts.json"), encoding="utf-8") as f:
+        committed = json.load(f)["eval"]
+    with open(os.path.join(DEMO_HARD, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        labels = dict(line.rstrip("\n").split(",", 1) for line in f
+                      if line.strip())
+    files = committed["files"]
+    truth = [labels[name] for name in files]
+    batch = committed["batch"]
+    out, counts = {}, {}
+    for name, (flags, results_md) in EVAL_COMMANDS.items():
+        argv = ["-m", "hctr-tiny", "-f", f"{DEMO_ASSETS}/hctr_tiny.pt",
+                "-i", DEMO_HARD, "-bm", "-b", str(batch), "-tv",
+                "-d", str(dev), *flags]
+        buf = io.StringIO()
+        # the LM command keeps the first inputs of each kernel it launches,
+        # K2's first with a cache EVAL_K2_DEPTH deep or more
+        wanted = ({k: (lambda a: True) for k in launch_counts()}
+                  | {"peek_cache_attention": lambda a: bool(
+                      (a[3] >= EVAL_K2_DEPTH).any())}
+                  if name == "lm_ss" else {})
+        reset_launches()          # ---- main path: the eval CLI
+        t0 = time.perf_counter()
+        with record_first(wanted) as kept, contextlib.redirect_stdout(buf):
+            result = eval_cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched = launch_counts()  # ---- end of main path
+        text = buf.getvalue()
+        texts = [ln[5:] for ln in text.splitlines() if ln.startswith("PRE: ")]
+        printed = [float(ln.split(":", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith("Total Test CER:")]
+        rate = [ln for ln in text.splitlines() if ln.startswith("lines: ")]
+        check(len(texts) == len(files) and printed == [result],
+              f"eval {name}: {len(texts)} texts, CER lines {printed}")
+        jax_texts = committed[name]["texts"]
+        differ = [i for i in range(len(files)) if texts[i] != jax_texts[i]]
+        gaps = eval_near_ties(dev, differ, batch)
+        for i in differ:
+            line = {"file": files[i], "card": texts[i], "jax": jax_texts[i],
+                    **gaps[i]}
+            emit({"phase": "eval_demo_hard_difference", "command": name,
+                  **line})
+            check(line["gap_f32"] < 2 * line["bf16_dev"],
+                  f"eval {name}: {files[i]} differs from the JAX eval text "
+                  f"beyond a bf16 near-tie: {line}")
+        jax_cer = committed[name]["cer"]
+        out[name] = {"argv": " ".join(argv[:-len(flags)] + flags),
+                     "cer": result, "cer_check": cer(texts, truth),
+                     "gate": {"results_md_cer": results_md,
+                              "abs_diff": abs(result - results_md),
+                              "tolerance": EVAL_CER_TOL,
+                              "jax_eval_cer_same_command": jax_cer,
+                              "abs_diff_jax_eval": abs(result - jax_cer)},
+                     "lines_differing": len(differ),
+                     "rate": rate[-1], "wall_s_with_load": wall,
+                     "launches": launched}
+        check(abs(result - results_md) <= EVAL_CER_TOL,
+              f"eval {name}: CER {result} vs RESULTS.md {results_md} "
+              f"(the JAX eval at the same command: {jax_cer})")
+        if name == "lm_ss":
+            counts = launched
+            x, kw = kept["topk_logsoftmax"]
+            out[name]["kernel_checks"] = {
+                "topk_logsoftmax": k1_exact(x, kw["prune"], "eval lm_ss",
+                                            k=kw["k"]),
+                "peek_cache_attention": {
+                    "max_abs_err": compare_k2(*kept["peek_cache_attention"]),
+                    "q": list(kept["peek_cache_attention"][0].shape),
+                    "kv": list(kept["peek_cache_attention"][1].shape),
+                    "cache_len_max": int(
+                        kept["peek_cache_attention"][3].max()),
+                    "dtype": str(kept["peek_cache_attention"][0].dtype)},
+                "lse_rows": {
+                    "max_abs_err": compare_k3(*kept["lse_rows"]),
+                    "x": list(kept["lse_rows"][0].shape),
+                    "emb": list(kept["lse_rows"][1].shape),
+                    "dtype": str(kept["lse_rows"][0].dtype)},
+                "gather_write_kv": {
+                    "max_abs_err": compare_k4(*kept["gather_write_kv"]),
+                    "cache": list(kept["gather_write_kv"][0].shape),
+                    "dtype": str(kept["gather_write_kv"][0].dtype)}}
+            out[name]["kernel_checks"]["topk_logsoftmax"].update(
+                logits=list(x.shape), dtype=str(x.dtype))
+    check(all(counts[k] > 0 for k in counts), f"eval -ss launches {counts}")
+    emit({"phase": "eval_demo_hard", "lines": len(files),
+          "recognizer": "hctr-tiny (trained, bf16)",
+          "cer_tolerance": EVAL_CER_TOL, **out})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -1530,6 +1834,8 @@ def main() -> int:
     del lm
     ss_kernels = phase_ss_kernels(dev, recorded)
     paths["demo_hard_ss"] = phase_demo_hard(dev)
+    phase_demo_hard_host(dev)
+    paths["eval_lm_ss"] = phase_eval_demo_hard(dev)
     # the kernels' launches on the skip route's main paths
     skip = {name: sum(c[name] for c in paths.values())
             for name in launch_counts()}

@@ -3,7 +3,7 @@
     python -m handwritten_chinese_ocr_samples_torch.cli.deploy \\
         -m <weights.pt | seed:<n>> -i <image or folder> [-dm beam-search] \\
         [-b 4] [--daemon] [-cl chars_list.txt] [-d cuda] \\
-        [-utp -uts -tp <lm dir | seed:<n>> [-ss]]
+        [-utp -uts -tp <lm dir | seed:<n>> [-ss]] [-ss -kp <ngram>]
 
 ``-m`` takes a torch state dict saved with ``torch.save`` (for example
 ``utils.weights.flax_to_torch`` of a JAX checkpoint, converted where JAX is
@@ -13,9 +13,11 @@ takes an LM directory (``config.json``, ``dict.txt``, ``weights.pt``) or
 characters; ``-dm beam-search -uts -tp ...`` serves the LM-fused device
 search, and ``-ss`` its skip search (the production LM route; ``--prune``,
 ``--seg-budget``, ``--run-max``, ``--ctx-ladder`` and ``--fused-commit``
-size it). The flags are the JAX CLI's; those of routes the port does not
-have yet (the host beam, which also serves ``-ss`` without a transformer
-LM, and int8) stop with an error that names the ROADMAP item.
+size it). ``-kp`` takes an n-gram LM (text ARPA or HBLM) that scores the
+beams of the host beam search, which also serves ``-ss`` without a
+transformer LM and ``-utp`` without ``-uts``. The flags are the JAX CLI's;
+those of the int8 routes, which the port does not have yet, stop with an
+error that names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ import sys
 # flag -> (default, route): a flag set to anything but its default asks for
 # a route the port does not have yet (keys of ``serve.engine._LATER``)
 _UNPORTED = {
-    "kenlm_path": ("", "host_beam"),
     "lm_int8": (False, "int8"), "int8": (False, "int8"),
 }
 
@@ -76,9 +77,12 @@ def build_argparser():
     args.add_argument("-tp", "--tfm-path", dest="tfm_path", type=str,
                       default="", help="char LM: a directory (config.json, "
                       "dict.txt, weights.pt) or 'seed:<n>'")
+    args.add_argument("-kp", "--kenlm-path", dest="kenlm_path", type=str,
+                      default="", help="n-gram LM (text ARPA or HBLM) "
+                      "scoring the beams of the host beam search")
     args.add_argument("-utp", "--use-tfm-pred", dest="use_tfm_pred",
                       action="store_true",
-                      help="LM proposes candidates (needs -uts)")
+                      help="LM proposes candidates")
     args.add_argument("-uts", "--use-tfm-score", dest="use_tfm_score",
                       action="store_true", help="LM scores the beams")
     args.add_argument("-lp", "--lm-panelty", dest="lm_panelty", type=float,
@@ -91,7 +95,7 @@ def build_argparser():
                       help="run the LM in f32 (default bf16)")
     args.add_argument("-ss", "--skip-search", action="store_true",
                       help="the skip search: confident frames skip the "
-                           "candidate search (needs -uts -tp)")
+                           "candidate search")
     args.add_argument("--seg-budget", dest="seg_budget", type=int, default=0,
                       help="skip search: segments a line (0 = auto)")
     args.add_argument("--run-max", dest="run_max", type=int, default=8,
@@ -106,10 +110,8 @@ def build_argparser():
                       action="store_true", help="skip search: write a run's "
                       "tokens with the next reorder")
     later = parser.add_argument_group(
-        "Not ported yet", "host-beam and int8 routes (ROADMAP.md); setting "
-        "any of these stops with an error")
-    later.add_argument("-kp", "--kenlm-path", dest="kenlm_path", type=str,
-                       default="")
+        "Not ported yet", "int8 routes (ROADMAP.md); setting any of these "
+        "stops with an error")
     later.add_argument("--lm-int8", dest="lm_int8", action="store_true")
     later.add_argument("--int8", dest="int8", action="store_true")
     return parser
@@ -142,16 +144,6 @@ def main(argv=None):
 
     unported = {k: route for k, (default, route) in _UNPORTED.items()
                 if getattr(args, k) != default}
-    # the port serves the LM through the device search only: LM scoring
-    # with a transformer (-uts -tp); -utp alone, -uts without an LM and a
-    # beam search with -ss but no such LM are the host beam's
-    use_tfm = args.use_tfm_pred or args.use_tfm_score
-    device_lm = args.use_tfm_score and bool(args.tfm_path)
-    if use_tfm and not device_lm:
-        unported["use_tfm_pred" if args.use_tfm_pred else
-                 "use_tfm_score"] = "host_beam"
-    if args.skip_search and args.method == "beam-search" and not device_lm:
-        unported["skip_search"] = "host_beam"
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)}: "
                      + "; ".join(sorted({_LATER[r]
@@ -165,22 +157,28 @@ def main(argv=None):
     lm = None
     if args.method == "beam-search":
         from ..decode.lm_interface import build_lm_backend
-        lm = build_lm_backend(args.tfm_path, use_tfm=use_tfm,
-                              chars_list=characters)
+        # LM wiring as `deploy.py:76-87` / `ctc_codec.py:101-122`
+        lm = build_lm_backend(
+            args.tfm_path, kenlm_path=args.kenlm_path,
+            use_tfm=args.use_tfm_pred or args.use_tfm_score,
+            chars_list=characters)
     widths = tuple(int(w) for w in args.widths.split(","))
     engine = ServingEngine(
         model, load_weights(args.model, model), codec, widths=widths,
         decode_method=args.method, beam_size=args.beam_size,
         search_depth=args.search_depth, lm_panelty=args.lm_panelty,
         len_bonus=args.len_bonus, lm=lm, use_lm_pred=args.use_tfm_pred,
-        use_lm_score=args.use_tfm_score, skip_search=args.skip_search,
+        use_lm_score=args.use_tfm_score or bool(args.kenlm_path),
+        skip_search=args.skip_search,
         lm_ctx=args.lm_ctx, lm_group=args.lm_group,
         seg_budget=args.seg_budget, run_max=args.run_max,
         ctx_ladder=args.ctx_ladder, fused_commit=args.fused_commit,
         lm_f32=args.lm_f32, prune=args.prune, device=args.device)
+    lm_name = "" if lm is None else ", LM " + getattr(lm, "path",
+                                                      args.tfm_path)
     log.info(f"Serving {args.language} on {engine.device} "
-             f"(widths {widths}, {args.method}"
-             f"{', LM ' + args.tfm_path if lm is not None else ''})")
+             f"(widths {widths}, {args.method}{lm_name}; decoder "
+             f"{engine.route.decoder})")
 
     if args.daemon and args.stdin_stream:
         return serve_stdin(engine, args)

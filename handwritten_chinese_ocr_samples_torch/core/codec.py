@@ -1,9 +1,10 @@
 """Text <-> CTC index codec (host side, pure numpy).
 
 The port's own copy of the JAX package's ``core/codec.py``, cut to what the
-serving path uses: the class space is ``['<blank>'] + chars + ['<unknown>']``,
-so ``blank_id`` is 0 and ``unknown_id`` is the last class, and decoded index
-rows become strings on the host.
+serving and host beam paths use: the class space is ``['<blank>'] + chars +
+['<unknown>']``, so ``blank_id`` is 0 and ``unknown_id`` is the last class,
+``dict`` maps a character to its class, and decoded index rows become
+strings on the host.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ class CTCCodec:
 
     def __init__(self, characters: str):
         self.chars_list = list(characters)
+        self.dict = {c: i + 1 for i, c in enumerate(self.chars_list)}
         self.characters = ["<blank>"] + self.chars_list + ["<unknown>"]
         self.blank_id = 0
         self.unknown_id = len(self.characters) - 1
+        self.dict["<blank>"] = self.blank_id
+        self.dict["<unknown>"] = self.unknown_id
         # U1 table for vectorized index->string conversion (decoded rows
         # never hold blank/unknown, so placeholders are safe there).
         self._chars_u1 = np.array(["\x00"] + self.chars_list + ["\x00"],

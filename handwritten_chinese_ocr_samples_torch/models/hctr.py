@@ -140,6 +140,7 @@ class HCTRModel(nn.Module):
     """
 
     img_height = 128
+    pad_mode = "NormalizePAD"
 
     def __init__(self, num_classes: int = 7375, backbone_channels: int = 512,
                  num_blocks: Sequence[int] = (2, 4, 5, 1),

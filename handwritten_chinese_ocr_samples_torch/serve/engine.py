@@ -2,17 +2,9 @@
 
 Requests are padded to a fixed set of width buckets; each batch runs
 normalise -> forward -> decode on the device, and only compact index rows
-come back to the host for the string join. Three decode routes:
-
-  * ``greedy-search``: argmax + CTC collapse on the device (``ops/decode``);
-  * ``beam-search`` (no LM): the fused log-softmax + top-K kernel feeding the
-    device prefix beam search (``decode/beam_device``);
-  * ``beam-search`` with a transformer LM and ``use_lm_score``: the fused
-    top-K (kernel K1, with its blank log-prob and its count of classes
-    above ``prune``) and the frame log-partition feeding the LM-fused
-    device search (``decode/adaptive`` over ``decode/beam_lm_device``,
-    kernels K2-K4): the skip search with ``skip_search`` (the production
-    route), else the full per-frame search.
+come back to the host for the string join. The decode routes (greedy, the
+device beam, the LM-fused device search and the host beam) live in
+``decode/routes``, which the eval driver shares.
 
 Preprocessing parity with the JAX engine: grayscale, resize to the model
 height (area interpolation), fixed width — truncate on the right if wider,
@@ -23,21 +15,16 @@ when a file is read; array input needs no image library.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..decode.beam_device import beam_search_fused
-from ..ops import topk_logsoftmax as _k1
-from ..ops.decode import greedy_decode_device
+from ..decode.routes import build_route
 
 # Routes of the JAX engine that later slices port (ROADMAP.md, queue 1).
 _LATER = {
-    "host_beam": "the host beam search, which serves -utp without -uts and "
-                 "a KenLM n-gram (ROADMAP.md queue 1, item 3)",
     "int8": "int8 serving and int8 LM matmuls (ROADMAP.md queue 1, "
             "item 5)",
 }
@@ -115,10 +102,11 @@ class ServingEngine:
     LM-fused device search, with the LM in bf16 unless ``lm_f32``, the skip
     search with ``skip_search`` (``prune`` is its ambiguity threshold, a
     probability; ``seg_budget``, ``run_max``, ``ctx_ladder`` and
-    ``fused_commit`` are ``decode/adaptive.AdaptiveLMBeam``'s). The JAX
-    engine's host-beam route (which also serves ``skip_search`` without a
-    transformer LM) and int8 routes raise ``NotImplementedError`` until the
-    port has them; none falls back to another route.
+    ``fused_commit`` are ``decode/adaptive.AdaptiveLMBeam``'s). The other
+    beam configurations that consult an LM or skip frames take the host
+    beam (``lm`` a ``KenLMBackend`` or a ``TorchLMBackend``), as in the JAX
+    engine. The int8 routes raise ``NotImplementedError`` until the port
+    has them; no route falls back to another.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict, codec,
@@ -143,49 +131,27 @@ class ServingEngine:
                  int8: bool = False,
                  prune: float = 0.001,
                  device: str | torch.device = "cuda"):
-        if decode_method not in ("greedy-search", "beam-search"):
-            raise ValueError(f"unknown decode method {decode_method!r}")
-        use_beam = decode_method == "beam-search"
-        # routing as in the JAX engine: a transformer LM (it has lm_model)
-        # with LM scoring takes the LM-fused device search; the skip search
-        # or LM scoring without one, and LM proposals without scoring,
-        # belong to the host beam; an LM that is neither scored nor
-        # proposing is ignored, and the plain device beam serves
         is_tfm = lm is not None and hasattr(lm, "lm_model")
-        self._device_lm_beam = use_beam and use_lm_score and is_tfm
-        if int8 or (self._device_lm_beam and lm_int8):
+        if int8 or (lm_int8 and is_tfm and use_lm_score
+                    and decode_method == "beam-search"):
             raise NotImplementedError(f"not ported yet: {_LATER['int8']}")
-        if use_beam and not self._device_lm_beam and (
-                skip_search or use_lm_score
-                or (lm is not None and use_lm_pred)):
-            raise NotImplementedError(
-                f"not ported yet: {_LATER['host_beam']}")
         self.device = torch.device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         self.codec = codec
         self.widths = sorted(widths)
-        self.decode_method = decode_method
-        self.beam_size = beam_size
-        self.search_depth = search_depth
-        self.len_bonus = len_bonus
-        self._prune_lp = math.log(prune)
-        if self._device_lm_beam:
-            from ..decode.adaptive import AdaptiveLMBeam
-            from ..decode.beam_lm_device import make_id_tables
-            from ..lm.cached import CachedLM
-            clm = CachedLM(lm.lm_model, lm.lm_params,
-                           dtype=torch.float32 if lm_f32 else torch.bfloat16,
-                           device=self.device)
-            c2l, l2c = make_id_tables(codec, lm.tokenizer)
-            self._lm_beam = AdaptiveLMBeam(
-                clm, c2l, l2c, beam_size=beam_size, depth=search_depth,
-                unknown_id=codec.unknown_id, lm_panelty=lm_panelty,
-                len_bonus=len_bonus, use_lm_pred=use_lm_pred,
-                skip_search=skip_search, group_size=lm_group, lm_ctx=lm_ctx,
-                seg_budget=seg_budget, run_max=run_max,
-                ctx_ladder=ctx_ladder, fused_commit=fused_commit,
-                prune=self._prune_lp)
+        self.route = build_route(
+            codec, decode_method, lm, use_lm_pred=use_lm_pred,
+            use_lm_score=use_lm_score, skip_search=skip_search,
+            beam_size=beam_size, search_depth=search_depth,
+            lm_panelty=lm_panelty, len_bonus=len_bonus, prune=prune,
+            lm_f32=lm_f32, lm_group=lm_group, lm_ctx=lm_ctx,
+            seg_budget=seg_budget, run_max=run_max, ctx_ladder=ctx_ladder,
+            fused_commit=fused_commit, device=self.device)
+        self._device_lm_beam = self.route.name == "lm"
+        self._lm_beam = self.route.lm_beam
+        self._host_beam = self.route.host
+        self._prune_lp = self.route.prune_lp
 
     def bucket_for(self, width: int) -> int:
         for w in self.widths:
@@ -215,25 +181,9 @@ class ServingEngine:
 
     @torch.inference_mode()
     def decode_logits(self, logits: torch.Tensor) -> List[str]:
-        """``(b, T, D)`` f32 logits -> one text per row, on this engine's
+        """``(b, T, D)`` logits -> one text per row, on this engine's
         decode route."""
-        unknown_id = self.codec.unknown_id
-        if self._device_lm_beam:
-            cv, ci, blank_lp, n_above = _k1.topk_logsoftmax(
-                logits, k=self.search_depth, prune=self._prune_lp)
-            logz = torch.logsumexp(logits.float(), dim=-1)
-            chars, lengths = self._lm_beam.decode(cv, ci, logits, logz,
-                                                  blank_lp, n_above)
-        elif self.decode_method == "beam-search":
-            chars, lengths = beam_search_fused(
-                logits, beam_size=self.beam_size, depth=self.search_depth,
-                unknown_id=unknown_id, blank_id=self.codec.blank_id,
-                len_bonus=self.len_bonus)
-        else:
-            chars, lengths = greedy_decode_device(
-                logits, unknown_id=unknown_id, blank_id=self.codec.blank_id)
-        return self.codec.compact_to_texts(chars.cpu().numpy(),
-                                           lengths.cpu().numpy())
+        return self.route.dispatch(logits)()
 
     def infer_files(self, image_files: Sequence[str],
                     iterations: int = 1) -> Tuple[List[str], float]:

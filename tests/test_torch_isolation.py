@@ -4,7 +4,9 @@ That machine has torch, numpy and the CUDA toolkit, but no JAX stack, no
 OpenCV or PIL, and none of the JAX package (whose ``__init__`` imports JAX).
 A subprocess refuses those imports, then imports every module of the port and
 ``chip_smoke``. ``chip_smoke.py`` must also fail, printing no result, where
-there is no card or no repository around it.
+there is no card or no repository around it. The native host libraries
+(``native/*.cc``) are built with the host C++ compiler; with none on
+``PATH`` the build raises, and no decoder falls back to Python.
 """
 
 import os
@@ -54,7 +56,7 @@ def test_port_imports_without_jax_cv2_pil():
                           env=_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported")[-1])
-    assert n >= 30          # lm/*, ops/*, decode/*, utils/posteriors included
+    assert n >= 43          # lm/*, ops/*, decode/*, data/*, eval/*, cli/*
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -72,3 +74,36 @@ def test_chip_smoke_fails_alone(tmp_path):
                           env=_env())
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+_NO_COMPILER = """
+import pathlib
+import pytest
+from handwritten_chinese_ocr_samples_torch.core.codec import CTCCodec
+from handwritten_chinese_ocr_samples_torch.decode import beam_host_native
+from handwritten_chinese_ocr_samples_torch.decode.beam_host import (
+    BeamSearchConfig)
+from handwritten_chinese_ocr_samples_torch.eval import metrics
+from handwritten_chinese_ocr_samples_torch.ops import _build
+_build.BUILD_DIR = pathlib.Path({tmp!r})
+for call in (
+        lambda: beam_host_native.try_native_host_decoder(
+            CTCCodec("ab"), BeamSearchConfig(use_lm_pred=False,
+                                             use_lm_score=False)),
+        lambda: metrics.cer_counts(["a"], ["b"])):
+    with pytest.raises(RuntimeError, match="no host C\\+\\+ compiler"):
+        call()
+assert not list(_build.BUILD_DIR.glob("*.so"))
+print("raised")
+"""
+
+
+def test_native_build_raises_without_a_compiler(tmp_path):
+    """An empty build directory and a ``PATH`` with no ``c++``/``g++``: the
+    native decoder and the edit distance raise at their first use."""
+    code = _NO_COMPILER.format(tmp=str(tmp_path / "build"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(_env(), PATH=str(tmp_path)))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("raised")

@@ -4,7 +4,8 @@ the JAX package's, on the same images and converted weights.
 Weights: the committed ``demo/checkpoint`` (hctr-tiny), read on the test
 side with the JAX package's ``restore_pytree_host`` and converted with
 ``flax_to_torch``. Served texts must be identical on the greedy and the
-device-beam route. Everything runs on the CPU.
+device-beam route, and on the host beam's no-LM routes. Everything runs on
+the CPU.
 """
 
 import io
@@ -31,6 +32,7 @@ from handwritten_chinese_ocr_samples_tpu.utils.ckpt_io import (
     restore_pytree_host)
 from handwritten_chinese_ocr_samples_torch.cli import deploy
 from handwritten_chinese_ocr_samples_torch.core.codec import CTCCodec
+from handwritten_chinese_ocr_samples_torch.decode.lm_interface import NullLM
 from handwritten_chinese_ocr_samples_torch.models.registry import (
     get_model_info)
 from handwritten_chinese_ocr_samples_torch.serve.daemon import ServingDaemon
@@ -43,6 +45,7 @@ DEMO = os.path.join(REPO, "demo")
 CHARS = os.path.join(DEMO, "data", "chars_list.txt")
 WIDTHS = (64, 128)
 BEAM = dict(beam_size=4, search_depth=5, len_bonus=1.0)
+NGRAM = os.path.join(REPO, "demo", "hard", "lm", "ngram.hblm")
 
 
 @pytest.fixture(scope="module")
@@ -55,12 +58,13 @@ def demo():
     return variables, files[:6]
 
 
-def _jax_engine(variables, method, dtype=jnp.float32, widths=WIDTHS):
+def _jax_engine(variables, method, dtype=jnp.float32, widths=WIDTHS,
+                beam=BEAM, **extra):
     with open(CHARS, encoding="utf-8") as f:
         codec = JaxCodec("".join(line.strip("\n") for line in f))
     model = FlaxHCTR(num_classes=codec.num_classes, backbone_channels=64,
                      num_blocks=(1, 1, 1, 1), dtype=dtype)
-    kw = BEAM if method == "beam-search" else {}
+    kw = dict(beam, **extra) if method == "beam-search" else {}
     return JaxEngine(model, variables, codec, widths=widths,
                      decode_method=method, **kw)
 
@@ -123,14 +127,24 @@ def test_resize_area_matches_opencv(shape, size):
 
 
 def test_unported_routes_raise(demo):
-    variables, _ = demo
+    """int8 still raises. The host-beam configurations, which raised until
+    the host beam was ported, now build it and serve the JAX engine's
+    texts."""
+    variables, files = demo
     model, chars = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)
-    for kw in (dict(use_lm_score=True), dict(lm=object(), use_lm_pred=True),
-               dict(skip_search=True), dict(int8=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(model, sd, CTCCodec(chars), device="cpu",
-                          decode_method="beam-search", **kw)
+    for kw in (dict(use_lm_score=True), dict(lm=NullLM(), use_lm_pred=True),
+               dict(skip_search=True)):
+        engine = ServingEngine(model, sd, CTCCodec(chars), device="cpu",
+                               widths=WIDTHS, decode_method="beam-search",
+                               **BEAM, **kw)
+        assert engine._host_beam is not None
+        want, _ = _jax_engine(variables, "beam-search", **kw).infer_files(
+            files)
+        assert engine.infer_files(files)[0] == want
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(model, sd, CTCCodec(chars), device="cpu",
+                      decode_method="beam-search", int8=True)
 
 
 @pytest.fixture(scope="module")
@@ -227,12 +241,26 @@ def test_cli_deploy_stdin_and_seed_weights(synth, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["-dm", "beam-search", "-ss"], ["-uts"],
-                                  ["-kp", "x.arpa"], ["--int8"],
+                                  ["-kp", NGRAM], ["--int8"],
                                   ["--lm-int8"]])
-def test_cli_deploy_unported_flags_error(synth, flag, capsys):
+def test_cli_deploy_unported_flags_error(demo, synth, flag, capsys):
+    """The int8 flags stop with an error that names their ROADMAP item. The
+    host-beam flags, refused until the host beam was ported, now serve the
+    JAX engine's texts for the same flags (``-uts`` and ``-kp`` without a
+    beam search leave greedy as it is)."""
     _, test_dir, pt = synth
-    with pytest.raises(SystemExit) as e:
-        deploy.main(["-m", pt, "-i", test_dir, "-d", "cpu", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+    argv = ["-m", pt, "-i", test_dir, "-lang", "hctr-tiny", "-cl", CHARS,
+            "-w", "128", "-d", "cpu", *flag]
+    if flag[0] in ("--int8", "--lm-int8"):
+        with pytest.raises(SystemExit) as e:
+            deploy.main(argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+        return
+    files = [os.path.join(test_dir, f) for f in sorted(os.listdir(test_dir))]
+    method = "beam-search" if "beam-search" in flag else "greedy-search"
+    want, _ = _jax_engine(demo[0], method, dtype=jnp.bfloat16, widths=(128,),
+                          beam={}, skip_search="-ss" in flag).infer_files(
+                              files)
+    assert deploy.main(argv) == want

@@ -137,17 +137,35 @@ def test_lm_knobs_reach_the_search(demo):
 
 
 def test_unported_lm_routes_raise(demo):
-    variables, _, chars, _, lm_state = demo
+    """The int8 LM still raises. The host-beam configurations, which raised
+    until the host beam was ported, now build it (LM proposals alone through
+    the Python decoder and ``LMScorer``, the others native) and serve the
+    JAX engine's texts."""
+    variables, files, chars, jax_lm, lm_state = demo
     lm = _torch_lm(chars, lm_state)
     model, _ = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)
-    for kw in (dict(lm=lm, use_lm_pred=True),              # -utp alone
-               dict(skip_search=True),                     # -ss, no LM
-               dict(lm=lm, use_lm_score=True, lm_int8=True),
-               dict(use_lm_score=True)):                   # no LM
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(model, sd, CTCCodec(chars), device="cpu",
-                          decode_method="beam-search", **kw)
+    for kw, jkw, native in (
+            (dict(lm=lm, use_lm_pred=True), dict(lm=jax_lm,
+                                                 use_lm_pred=True), False),
+            (dict(skip_search=True), dict(skip_search=True), True),
+            (dict(use_lm_score=True), dict(use_lm_score=True), True)):
+        engine = ServingEngine(model, sd, CTCCodec(chars), device="cpu",
+                               widths=WIDTHS, decode_method="beam-search",
+                               **BEAM, **kw)
+        assert (type(engine._host_beam).__name__
+                == ("Native" if native else "") + "BeamSearchDecoder")
+        codec = JaxCodec(chars)
+        jax_model = FlaxHCTR(num_classes=codec.num_classes,
+                             backbone_channels=64, num_blocks=(1, 1, 1, 1))
+        want, _ = JaxEngine(jax_model, variables, codec, widths=WIDTHS,
+                            decode_method="beam-search", **BEAM,
+                            **jkw).infer_files(files[:2])
+        assert engine.infer_files(files[:2])[0] == want
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(model, sd, CTCCodec(chars), device="cpu",
+                      decode_method="beam-search", lm=lm, use_lm_score=True,
+                      lm_int8=True)
 
 
 @pytest.fixture(scope="module")
@@ -192,15 +210,32 @@ def test_cli_deploy_lm_route_matches_jax(demo, lm_dir, mode):
     ["-uts"],                                 # LM scoring without an LM
     ["-uts", "-tp", "LM", "--lm-int8"]])
 def test_cli_deploy_unported_lm_flags_error(lm_dir, demo, flags, capsys):
+    """``--lm-int8`` stops with an error that names its ROADMAP item. The
+    host-beam flags, refused until the host beam was ported, now serve the
+    JAX engine's texts for the same flags (``-utp`` without an LM serves
+    the plain device beam, as in the JAX engine)."""
     d, pt, _ = lm_dir
-    flags = [d if f == "LM" else f for f in flags]
-    with pytest.raises(SystemExit) as e:
-        deploy.main(["-lang", "hctr-tiny", "-m", pt, "-i", demo[1][0],
-                     "-cl", CHARS, "-d", "cpu", "-dm", "beam-search",
-                     *flags])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+    argv = ["-lang", "hctr-tiny", "-m", pt, "-i", demo[1][0], "-cl", CHARS,
+            "-d", "cpu", "-dm", "beam-search", "-w", "128",
+            *[d if f == "LM" else f for f in flags]]
+    if "--lm-int8" in flags:
+        with pytest.raises(SystemExit) as e:
+            deploy.main(argv)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+        return
+    variables, files, chars, jax_lm, _ = demo
+    codec = JaxCodec(chars)
+    model = FlaxHCTR(num_classes=codec.num_classes, backbone_channels=64,
+                     num_blocks=(1, 1, 1, 1), dtype=jnp.bfloat16)
+    kw = dict(skip_search="-ss" in flags, use_lm_score="-uts" in flags,
+              use_lm_pred="-utp" in flags,
+              lm=jax_lm if "LM" in flags else None)
+    want, _ = JaxEngine(model, variables, codec, widths=(128,),
+                        decode_method="beam-search", **kw).infer_files(
+                            files[:1])
+    assert deploy.main(argv) == want
 
 
 # ------------------------------------------------- the skip search (-ss)

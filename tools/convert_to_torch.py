@@ -13,10 +13,16 @@ JAX package, and writes with the port's ``utils.weights`` into
   * ``lm/``: ``config.json``, ``dict.txt`` and ``weights.pt``, a directory
     that the port's ``lm/io.load_lm`` reads;
   * ``texts.json``: the JAX ``ServingEngine``'s texts for every line of
-    ``demo/hard/data/test``, on the greedy route, the plain device beam and
-    the LM-fused skip search (``-dm beam-search -utp -uts -tp lm -ss -lp 0.8
-    -lb 0.0``, LM in f32, the CLI's other defaults), with the recognizer in
-    f32, batch 8. ``chip_smoke.py`` holds the card's texts against them.
+    ``demo/hard/data/test``, with the recognizer in f32, batch 8: on the
+    greedy route, the plain device beam, the LM-fused skip search
+    (``-dm beam-search -utp -uts -tp lm -ss -lp 0.8 -lb 0.0``, LM in f32,
+    the CLI's other defaults), and the three host-beam routes of
+    ``HOST_ROUTES`` (the n-gram skip search, the skip search without an LM,
+    LM proposals alone with the LM in f32); and, under ``eval``, the JAX
+    eval CLI's (``cli/test.py -bm``, recognizer in bf16) texts and CER for
+    the three commands of ``demo/hard/RESULTS.md`` at ``-b 8``, each with
+    its command line. ``chip_smoke.py`` holds the card's texts against
+    them.
 
 Needs the JAX package (JAX, flax, orbax); the port never imports this file.
 """
@@ -40,6 +46,45 @@ WIDTHS = (512, 1024, 1600)
 BATCH = 8
 # the skip-search route of demo/hard/RESULTS.md (grid-searched knobs)
 SS = dict(lm_panelty=0.8, len_bonus=0.0)
+NGRAM = os.path.join(DEMO, "lm", "ngram.hblm")
+# the host-beam routes: ServingEngine keywords (with "lm" naming the
+# backend) and the deploy CLI's flags
+HOST_ROUTES = {
+    "ngram_ss": (dict(lm="ngram", use_lm_score=True, skip_search=True, **SS),
+                 "-dm beam-search -ss -kp demo/hard/lm/ngram.hblm -lp 0.8 "
+                 "-lb 0.0"),
+    "ss_nolm": (dict(skip_search=True, **SS),
+                "-dm beam-search -ss -lp 0.8 -lb 0.0"),
+    "utp": (dict(lm="tfm", use_lm_pred=True, **SS),
+            "-dm beam-search -utp -tp lm -lp 0.8 -lb 0.0"),
+}
+# demo/hard/RESULTS.md's three eval commands (cli/test.py -bm, after
+# "-m hctr-tiny -f <weights> -i demo/hard/data -bm -b 8")
+EVAL_BATCH = 8
+EVAL_COMMANDS = {
+    "greedy": ["-dm", "greedy-search"],
+    "lm_ss": ["-dm", "beam-search", "-utp", "-uts", "-tp", "LM", "-ss",
+              "-lp", "0.8", "-lb", "0.0"],
+    "ngram_ss": ["-dm", "beam-search", "-ss", "-kp", "NGRAM", "-lp", "0.8",
+                 "-lb", "0.0"],
+}
+
+
+def eval_argv(name: str, model_file: str, data: str, lm_dir: str,
+              ngram: str = NGRAM, batch: int = EVAL_BATCH) -> list:
+    """The eval CLI's arguments of ``EVAL_COMMANDS[name]``."""
+    subst = {"LM": lm_dir, "NGRAM": ngram}
+    return (["-m", "hctr-tiny", "-f", model_file, "-i", data, "-bm", "-b",
+             str(batch), "-tv", "-jw", "2"]
+            + [subst.get(a, a) for a in EVAL_COMMANDS[name]])
+
+
+def parse_eval_output(out: str):
+    """``(texts, CER)`` from the eval CLI's ``-tv`` output."""
+    texts = [line[5:] for line in out.splitlines() if line.startswith("PRE: ")]
+    cer = [float(line.split(":", 1)[1]) for line in out.splitlines()
+           if line.startswith("Total Test CER:")]
+    return texts, cer[-1]
 
 
 def convert(demo: str, out: str) -> None:
@@ -67,7 +112,7 @@ def convert(demo: str, out: str) -> None:
 
 
 def reference_texts(demo: str, n_lines: int | None = None,
-                    routes=("greedy", "beam", "ss")) -> dict:
+                    routes=("greedy", "beam", "ss", *HOST_ROUTES)) -> dict:
     """The JAX engine's texts for the test split (its first ``n_lines``)
     on ``routes``."""
     import jax.numpy as jnp
@@ -92,16 +137,23 @@ def reference_texts(demo: str, n_lines: int | None = None,
     codec = CTCCodec(characters)
     variables = load_recognizer_variables(os.path.join(demo, "checkpoint"))
     lm = build_lm_backend(tfm_path=os.path.join(demo, "lm"), use_tfm=True)
+    lms = {"tfm": lm, "ngram": build_lm_backend(
+        kenlm_path=os.path.join(demo, "lm", "ngram.hblm"))}
     settings = {
         "greedy": dict(decode_method="greedy-search"),
         "beam": dict(decode_method="beam-search"),
         "ss": dict(decode_method="beam-search", lm=lm, use_lm_pred=True,
                    use_lm_score=True, skip_search=True, lm_f32=True, **SS),
     }
+    for name, (kw, _) in HOST_ROUTES.items():
+        kw = dict(kw, decode_method="beam-search", lm_f32=True)
+        kw["lm"] = lms.get(kw.get("lm"))
+        settings[name] = kw
     out = {"files": files, "widths": list(WIDTHS), "batch": BATCH,
            "recognizer_dtype": "float32",
            "ss_route": "-dm beam-search -utp -uts -tp lm -ss -lp 0.8 -lb 0.0"
-                       " --lm-f32"}
+                       " --lm-f32",
+           "host_routes": {k: v[1] for k, v in HOST_ROUTES.items()}}
     for name in routes:
         kw = settings[name]
         t0 = time.time()
@@ -110,6 +162,41 @@ def reference_texts(demo: str, n_lines: int | None = None,
         print(f"{name}: {len(paths)} lines in {time.time() - t0:.1f} s",
               flush=True)
     return out
+
+
+def reference_eval(demo: str, data: str | None = None,
+                   commands=tuple(EVAL_COMMANDS)) -> dict:
+    """The JAX eval CLI's texts and CER for ``commands`` on the test split
+    of ``data`` (``demo``'s own by default), in bf16 at ``-b 8``."""
+    import contextlib
+    import io
+
+    from handwritten_chinese_ocr_samples_tpu.cli.test import build_argparser
+    from handwritten_chinese_ocr_samples_tpu.data.dataset import ImageDataset
+    from handwritten_chinese_ocr_samples_tpu.eval.driver import run_benchmark
+
+    data = data or os.path.join(demo, "data")
+    n = len(ImageDataset(data, (1, 128), "test", batch_size=EVAL_BATCH))
+    files = [os.path.basename(p) for p, _ in ImageDataset(
+        data, (1, 128), "test").data_list[:n]]
+    out = {}
+    for name in commands:
+        argv = eval_argv(name, os.path.join(demo, "checkpoint"), data,
+                         os.path.join(demo, "lm"),
+                         ngram=os.path.join(demo, "lm", "ngram.hblm"))
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_benchmark(build_argparser().parse_args(argv))
+        texts, cer = parse_eval_output(buf.getvalue())
+        shown = {"LM": "demo/hard/lm", "NGRAM": "demo/hard/lm/ngram.hblm"}
+        out[name] = {"command": " ".join(shown.get(a, a)
+                                         for a in EVAL_COMMANDS[name]),
+                     "cer": cer, "texts": texts}
+        print(f"eval {name}: CER {cer}, {len(texts)} lines in "
+              f"{time.time() - t0:.1f} s", flush=True)
+    return {"files": files, "batch": EVAL_BATCH,
+            "recognizer_dtype": "bfloat16", **out}
 
 
 def main(argv=None) -> int:
@@ -123,9 +210,10 @@ def main(argv=None) -> int:
     jax.config.update("jax_platforms", "cpu")
     convert(args.demo, args.out)
     if not args.skip_texts:
+        texts = reference_texts(args.demo)
+        texts["eval"] = reference_eval(args.demo)
         with open(os.path.join(args.out, "texts.json"), "w") as f:
-            json.dump(reference_texts(args.demo), f, ensure_ascii=False,
-                      indent=0)
+            json.dump(texts, f, ensure_ascii=False, indent=0)
     print(f"wrote {args.out}")
     return 0
 
