@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels
+    python3 chip_smoke.py --train
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
@@ -15,14 +16,36 @@ assets/demo_hard`` against the JAX package's committed texts, on the device
 routes and on the host beam's (the n-gram skip search, the skip search
 without an LM, and LM proposals alone, with the native decoder built from
 the port's C++ source), runs the port's eval CLI (``cli/test.py -bm``) on
-demo/hard's three commands of ``demo/hard/RESULTS.md``, and checks what
-comes out. Every phase prints one JSON line; any failed check raises,
-so the exit code is non-zero. The last line is ``{"ok": true, "device":
+demo/hard's three commands of ``demo/hard/RESULTS.md``, then trains
+(``train_parity``, ``train_full``, ``train_cli``), and checks what comes
+out. Every phase prints one JSON line; any failed check raises, so the
+exit code is non-zero. The last line is ``{"ok": true, "device":
 {...}}``.
+
+The training phases launch none of K1-K4 (training reaches no TPU kernel):
+
+  * ``train_parity``: one SGD and one Adam step of ``hctr-tiny`` in f32
+    (dropout 0) from the same seeded weights on the card, held against the
+    same step on the CPU with f64 activations (loss, gradients, new
+    parameters, new running statistics) within the ``TRAIN_*_TOL``
+    tolerances or the CPU's own f32 distance from it; ``dropout_recompute``'s
+    backward mask equal to its forward's, and its keep fractions.
+  * ``train_full``: 30 steps of the full-width ``hctr`` (bf16 compute, f32
+    parameters, dropout on) at ``demo/full/RESULTS.md``'s recipe on
+    ``demo/full``'s training lines, through the port's ``Trainer``: ms a
+    step, lines/s, the share of the bf16 peak, peak memory, the idle share
+    under torch.profiler, the same with ``remat``; every loss finite, no
+    step skipped, the loss falling.
+  * ``train_cli``: ``cli/train.py`` in a subprocess, a warm start from the
+    converted demo/hard weights and one epoch of demo/hard's training
+    lines: the JAX checkpoint names, the test accuracy within
+    ``TRAIN_CLI_ACC_TOL`` of the JAX CLI's, and the eval CLI's CER on the
+    saved checkpoint equal to ``1 - acc``.
 
 ``--kernels`` runs only the build and the kernel phases: K1 at the shapes
 of ``K1_SHAPES`` and K2-K4 on a seeded frame of the served LM route's
-shapes, timing the kernels before checking them; it prints no ``ok`` line.
+shapes, timing the kernels before checking them; ``--train`` runs only the
+training phases. Neither prints the ``ok`` line.
 
 It needs a CUDA card and the repository around it: without either it fails
 before printing any result. TF32 is switched off for convolutions and matrix
@@ -142,6 +165,50 @@ EVAL_CER_TOL = 0.005
 # K2 is held on the eval LM command's first call with a cache this deep
 # (demo/hard's lines hold 7-12 characters): a one-token cache is a copy
 EVAL_K2_DEPTH = 8
+# train_parity: hctr-tiny on demo/hard's classes in f32 (TF32 off), dropout
+# 0, one SGD and one Adam step from the same seeded weights on the card
+# and on the CPU (f32, and f64 activations as the reference), on a seeded
+# batch
+PARITY_B, PARITY_W, PARITY_L, PARITY_SEED = 8, 256, 12, 0
+PARITY_LR = {"SGD": 0.01, "Adam": 1e-3}
+# f32 convolutions and the CTC sum in other orders on the two devices
+TRAIN_LOSS_TOL = 1e-5          # relative
+# of each tensor's largest |g|; of the model's for a conv bias that feeds
+# a train-mode BatchNorm, whose gradient is 0 in exact arithmetic
+TRAIN_GRAD_TOL = 1e-4
+# times lr: a step moves an element by about lr at most
+TRAIN_PARAM_TOL = 1e-3
+# Adam's first step moves each element by about lr * sign(u), u the clipped
+# gradient plus the weight decay: an element whose |u| is under this share
+# of its tensor's largest (or within the f32 noise, see adam_flips) may
+# flip, so it is counted and bounded by 2 lr instead
+ADAM_FLIP_SHARE = 1e-4
+TRAIN_STAT_TOL = 1e-5          # new running statistics, absolute
+# f32 on the CPU lies up to 6e-3 of a tensor's largest gradient from f64
+# here (ReLU inputs within f32 rounding of 0 flip): the card's f32 may lie
+# as far from f64 as this many times the CPU's, where that exceeds a
+# tolerance above
+F32_NOISE_MARGIN = 4
+DROPOUT_RATES = (0.1, 0.3, 0.9)
+DROPOUT_N = 1 << 24            # draws a rate for the keep fraction (4 sigma)
+# train_full: demo/full/RESULTS.md's recipe (Adam, lr 5e-4, batch 16, seed
+# 42, --max-width 1200, the trainer's 128-px buckets) on demo/full's
+# training lines, full-width hctr in bf16 with f32 parameters, dropout on
+FULL_MODEL, FULL_DATA = "hctr", "demo/full/data"
+FULL_RECIPE = dict(batch_size=16, lr=5e-4, weight_decay=1e-4,
+                   optimizer="adam", seed=42, max_width=1200,
+                   bucket_step=128, workers=4)
+FULL_STEPS = 30
+FULL_TIMED_FROM = 10           # steps 11-30 are timed (past cuDNN's autotune)
+FULL_REPLAYED = 10             # the last steps' batches, profiled and remat
+# train_cli: the JAX CLI's test accuracy on the same command on the CPU,
+# warm-started from the same weights (tools/train_cli_reference.py, which
+# strips demo/hard/checkpoint to its weights first: -re on the full
+# checkpoint resumes at epoch 142)
+JAX_CLI_ACC = 0.9161
+# bf16 forwards on two backends and dropout masks from other generators
+TRAIN_CLI_ACC_TOL = 0.02
+TRAIN_CLI_TIMEOUT = 600        # seconds for the CLI's subprocess
 
 
 def emit(obj) -> None:
@@ -1049,7 +1116,6 @@ def profile_decode(engine: ServingEngine, logits: torch.Tensor, wanted=None,
     """One decode under torch.profiler: ``(device busy ms, device ms of each
     of the port's kernels, kernel launches, the 12 largest kernels, the
     records of wanted``, see ``record_first``)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1057,19 +1123,28 @@ def profile_decode(engine: ServingEngine, logits: torch.Tensor, wanted=None,
               contextlib.nullcontext({})) as kept:
             engine.decode_logits(logits)
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     own = {name: 0.0 for name in _OWN.values()}
     for key, ms, _ in kernels:
         for tag, name in _OWN.items():
             if tag in key:
                 own[name] += ms
-    top = [{"name": k[:90], "ms": ms, "count": n}
-           for k, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]]
     return (sum(ms for _, ms, _ in kernels), own,
-            sum(n for _, _, n in kernels), top, kept)
+            sum(n for _, _, n in kernels), top_kernels(kernels), kept)
+
+
+def device_kernels(prof) -> list:
+    """``(name, device ms, launches)`` of each kernel in a profile."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def top_kernels(kernels: list) -> list:
+    return [{"name": k[:90], "ms": ms, "count": n}
+            for k, ms, n in sorted(kernels, key=lambda k: -k[1])[:12]]
 
 
 def phase_lm_breakdown(engine: ServingEngine, logits: torch.Tensor,
@@ -1795,6 +1870,468 @@ def phase_eval_demo_hard(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ training
+def tiny_trainee(dev, **kw):
+    """``hctr-tiny`` on demo/hard's classes, f32 parameters, on ``dev``."""
+    model, characters = get_model_info(
+        "hctr-tiny", chars_list_file=f"{DEMO_HARD}/chars_list.txt", **kw)
+    return model.to(dev), characters
+
+
+def parity_batch(classes: int) -> dict:
+    """A seeded batch of the train step's layout (numpy)."""
+    rng = np.random.default_rng(PARITY_SEED)
+    B, W, L = PARITY_B, PARITY_W, PARITY_L
+    lengths = rng.integers(4, L + 1, B)
+    return {"images": rng.uniform(-1, 1, (B, 128, W, 1)).astype(np.float32),
+            "labels": rng.integers(1, classes - 1, (B, L)).astype(np.int32),
+            "label_paddings": (np.arange(L)[None] >= lengths[:, None]
+                               ).astype(np.float32),
+            "widths": rng.integers(W // 2, W + 1, B).astype(np.int32)}
+
+
+def step_batch(batch: dict, dev) -> dict:
+    """Images and labels on ``dev``, the CTC lengths on the CPU."""
+    return {"images": torch.from_numpy(batch["images"]).to(dev),
+            "labels": torch.from_numpy(batch["labels"]).to(dev),
+            "label_paddings": torch.from_numpy(batch["label_paddings"]),
+            "widths": torch.from_numpy(batch["widths"])}
+
+
+def zero_in_exact_arithmetic(name: str) -> bool:
+    """A conv bias that feeds a train-mode BatchNorm (all but the head's)."""
+    return name.endswith("bias") and "conv" in name
+
+
+def one_step(dev, kind: str, weights: dict, batch: dict,
+             dtype=torch.float32) -> dict:
+    """The gradients of ``batch``'s loss, then one train step of ``kind``,
+    from ``weights`` on ``dev``, activations in ``dtype``; all on the CPU
+    after."""
+    from handwritten_chinese_ocr_samples_torch.ops.ctc import ctc_loss_mean
+    from handwritten_chinese_ocr_samples_torch.train import step as tstep
+    model, _ = tiny_trainee(dev, stage_drop=(0.0,) * 4, block_drop=0.0,
+                            dtype=dtype)
+    model.load_state_dict(weights)
+    model.train()
+    b = step_batch(batch, dev)
+    names, params = zip(*model.named_parameters())
+    loss = ctc_loss_mean(model(b["images"]), b["labels"],
+                         b["label_paddings"])
+    grads = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss,
+                                                                   params))}
+    state = tstep.TrainState.create(
+        model, tstep.make_optimizer(kind, lr=PARITY_LR[kind]))
+    state, metrics = tstep.make_train_step()(state, b, 0)
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "skipped": float(metrics["skipped"]), "grads": grads,
+            "new": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def adam_flips(grads: dict, weights: dict, noise: dict) -> dict:
+    """Elements whose Adam direction u (clipped gradient + weight decay)
+    may change sign between two f32 evaluations: |u| under
+    ``ADAM_FLIP_SHARE`` of their tensor's largest (the model's, for a conv
+    bias that feeds a BatchNorm), or under ``F32_NOISE_MARGIN`` times the
+    tensor's largest f32 gradient error ``noise`` (clipped alike)."""
+    total = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads.values()])).item()
+    f = min(1.0, 5.0 / total)
+    u = {n: f * g + 1e-4 * weights[n] for n, g in grads.items()}
+    top = max(v.abs().max().item() for v in u.values())
+    return {n: v.abs() < max(
+        ADAM_FLIP_SHARE * (top if zero_in_exact_arithmetic(n)
+                           else v.abs().max().item()),
+        F32_NOISE_MARGIN * f * noise[n]) for n, v in u.items()}
+
+
+def dropout_on_card(dev) -> dict:
+    """``dropout_recompute`` on the card: its backward multiplies by the
+    forward's mask, exactly, and its keep fraction at each rate of
+    ``DROPOUT_RATES`` lies within 4 sigma of ``1 - ceil(rate * 65536) /
+    65536``."""
+    import math
+    from handwritten_chinese_ocr_samples_torch.ops.dropout import (
+        dropout_recompute, fold_in, keep_mask)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.rand(64, 1024, 257, generator=g, device=dev) + 0.5
+         ).requires_grad_()
+    dy = torch.rand(x.shape, generator=g, device=dev) + 0.5
+    y = dropout_recompute(x, fold_in(7, 1), 0.3)
+    y.backward(dy)
+    scale = torch.tensor(1 / 0.7).item()
+    kept = y.detach() != 0
+    check(torch.equal(x.grad, torch.where(kept, dy * scale, 0.0)),
+          "dropout: the backward's mask is not the forward's")
+    out = {"backward_mask_equal": True, "elements": x.numel(),
+           "kept_share_0.3": kept.float().mean().item()}
+    for rate in DROPOUT_RATES:
+        share = keep_mask(fold_in(11, int(rate * 10)), (DROPOUT_N,), rate,
+                          dev).float().mean().item()
+        p = 1 - math.ceil(rate * 65536) / 65536
+        sigma = math.sqrt(p * (1 - p) / DROPOUT_N)
+        check(abs(share - p) <= 4 * sigma,
+              f"dropout {rate}: keep share {share} vs {p} +- 4 x {sigma}")
+        out[f"rate_{rate}"] = {"keep_share": share, "expected": p,
+                               "sigmas": (share - p) / sigma}
+    return out
+
+
+def step_errors(got: dict, want: dict, flips: dict, lr: float) -> dict:
+    """How far one step's results ``got`` lie from ``want``: the loss
+    (relative), the gradients (of each tensor's largest |g|, of the
+    model's for a conv bias that feeds a BatchNorm), the new parameters
+    (over lr; the elements of ``flips`` apart, counted, with their own
+    largest error) and the new running statistics."""
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    grad = 0.0
+    for n, g in want["grads"].items():
+        scale = top if zero_in_exact_arithmetic(n) else g.abs().max().item()
+        grad = max(grad, (got["grads"][n] - g).abs().max().item() / scale)
+    param, flip, n_flips, stat = 0.0, 0.0, 0, 0.0
+    for n, w in want["new"].items():
+        diff = (got["new"][n] - w).abs()
+        if n.endswith(("running_mean", "running_var")):
+            stat = max(stat, diff.max().item())
+            continue
+        if n in flips:
+            n_flips += int(flips[n].sum())
+            if flips[n].any():
+                flip = max(flip, diff[flips[n]].max().item() / lr)
+            diff = diff[~flips[n]]
+        if diff.numel():
+            param = max(param, diff.max().item() / lr)
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grad_of_max": grad, "param_over_lr": param, "stat": stat,
+            "flip_prone_left_out": n_flips, "flip_prone_over_lr": flip}
+
+
+def phase_train_parity(dev) -> dict:
+    """One SGD and one Adam step of ``hctr-tiny`` (f32, dropout 0) from the
+    same seeded weights on the card and on the CPU, and on the CPU with
+    f64 activations (the reference): the card's loss, gradients, new
+    parameters and new running statistics lie within the ``TRAIN_*_TOL``
+    tolerances of the reference, or within ``F32_NOISE_MARGIN`` times the
+    CPU's f32 distance from it where that is larger (a ReLU input within
+    f32 rounding of 0 flips between two f32 evaluations, which moves the
+    gradients of the layers below it by up to a few 1e-3 of their largest
+    value). Adam's first step moves each element by about lr * sign(u), so
+    the elements whose sign the f32 noise can turn (``adam_flips``) are
+    counted and held to 2 lr apart. Then dropout's properties on the
+    card."""
+    from handwritten_chinese_ocr_samples_torch.utils.weights import (
+        init_state_dict)
+    model, characters = tiny_trainee("cpu")
+    weights = init_state_dict(model, torch.Generator().manual_seed(0))
+    batch = parity_batch(len(characters) + 2)
+    tol = {"loss_rel": TRAIN_LOSS_TOL, "grad_of_max": TRAIN_GRAD_TOL,
+           "param_over_lr": TRAIN_PARAM_TOL, "stat": TRAIN_STAT_TOL}
+    out = {}
+    for kind, lr in PARITY_LR.items():
+        ref = one_step("cpu", kind, weights, batch, torch.float64)
+        cpu = one_step("cpu", kind, weights, batch)
+        card = one_step(dev, kind, weights, batch)
+        check(ref["skipped"] == cpu["skipped"] == card["skipped"] == 0.0,
+              f"train_parity {kind}: a step was skipped")
+        noise = {n: (cpu["grads"][n] - g).abs().max().item()
+                 for n, g in ref["grads"].items()}
+        flips = (adam_flips(ref["grads"], weights, noise) if kind == "Adam"
+                 else {})
+        err_card = step_errors(card, ref, flips, lr)
+        err_cpu = step_errors(cpu, ref, flips, lr)
+        bound = {k: max(t, F32_NOISE_MARGIN * err_cpu[k])
+                 for k, t in tol.items()}
+        for k, b in bound.items():
+            check(err_card[k] <= b, f"train_parity {kind}: {k} "
+                  f"{err_card[k]} over {b} (the CPU's f32: {err_cpu[k]})")
+        check(err_card["flip_prone_over_lr"] <= 2 * (1 + 1e-3),
+              f"train_parity {kind}: a flip-prone element moved "
+              f"{err_card['flip_prone_over_lr']} lr")
+        out[kind] = {"lr": lr, "loss_f64": ref["loss"],
+                     "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+                     "grad_norm_f64": ref["grad_norm"],
+                     "grad_norm_card": card["grad_norm"],
+                     "card_vs_f64": err_card, "cpu_f32_vs_f64": err_cpu,
+                     "card_vs_cpu_f32": step_errors(card, cpu, flips, lr),
+                     "bound": bound}
+    out["dropout"] = dropout_on_card(dev)
+    emit({"phase": "train_parity", "model": "hctr-tiny (f32, dropout 0)",
+          "reference": "the port on the CPU, f64 activations",
+          "batch": PARITY_B, "width": PARITY_W, "tolerances": tol,
+          "f32_noise_margin": F32_NOISE_MARGIN,
+          "adam_flip_share": ADAM_FLIP_SHARE, **out})
+    return out
+
+
+def train_flops(model, batch: int, width: int, dev) -> float:
+    """Multiply-adds x 2 of one forward at ``(batch, width)``: the
+    convolutions' from their output shapes, the SE gates' and the head's
+    from their weights; a train step is 3 times this (forward, and twice
+    that for the backward)."""
+    from handwritten_chinese_ocr_samples_torch.models.hctr import (
+        Conv, SELayer)
+    total = [0.0]
+
+    def conv_hook(m, args, out):
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    def se_hook(m, args, out):
+        total[0] += 2.0 * args[0].shape[0] * (m.fc1.weight.numel()
+                                              + m.fc2.weight.numel())
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, Conv)
+                                     else se_hook)
+             for m in model.modules() if isinstance(m, (Conv, SELayer))]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            logits = model(torch.zeros(batch, 128, width, 1, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    total[0] += 2.0 * logits.shape[0] * logits.shape[1] * \
+        model.linear.weight.numel()
+    return total[0]
+
+
+def timed_steps(trainer, batches, seed: int):
+    """Train steps on ``batches``, a CUDA event before each and after the
+    last; returns (metrics of each step, the events)."""
+    events, metrics = [], []
+    for batch in batches:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        trainer.state, m = trainer.train_step(trainer.state, batch, seed)
+        metrics.append(m)
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    return metrics, events
+
+
+def steps_ms(events) -> list:
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def profile_steps(trainer, batches, seed: int) -> tuple:
+    """Train steps under torch.profiler: (device busy ms, kernel launches,
+    the 12 largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            trainer.state, _ = trainer.train_step(trainer.state, batch, seed)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return (sum(ms for _, ms, _ in kernels),
+            sum(n for _, _, n in kernels), top_kernels(kernels))
+
+
+def host_syncs(fn) -> dict:
+    """The synchronising CUDA calls of ``fn()`` (torch's sync debug mode),
+    counted by the innermost line outside torch that made them."""
+    import traceback
+    import warnings
+    calls, inside = {}, [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f"{os.sep}torch{os.sep}" not in f.filename
+                  and not f.filename.endswith("warnings.py")]
+        where = (f"{os.path.relpath(frames[-1].filename)}:{frames[-1].lineno}"
+                 if frames else f"{filename}:{lineno}")
+        calls[where] = calls.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True        # setting the mode may synchronise itself
+        try:
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return calls
+
+
+def phase_train_full(dev) -> dict:
+    """``FULL_STEPS`` train steps of the full-width ``hctr`` (bf16 compute,
+    f32 parameters, dropout on) on demo/full's training lines through the
+    port's ``Trainer`` (its loader, its batch preparation that overlaps the
+    next batch's copy to the card with the step, its train step) at
+    demo/full's recipe: ms a step, lines/s and the share of the bf16 peak
+    over steps 11-30 (CUDA events at the step boundaries), peak memory, the
+    device's idle share over the last ``FULL_REPLAYED`` batches taken again
+    under torch.profiler (busy time there against the same batches' time
+    unprofiled), the same batches with ``remat``, and the synchronising
+    CUDA calls of one step. Every loss is finite, no step is skipped, the
+    loss falls from step 1 to the last, and none of K1-K4 launches."""
+    from handwritten_chinese_ocr_samples_torch.ops.dropout import fold_in
+    from handwritten_chinese_ocr_samples_torch.train.trainer import (
+        Trainer, TrainerConfig)
+    steps = FULL_STEPS
+    model, characters = get_model_info(FULL_MODEL, data_dir=FULL_DATA,
+                                       dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(TrainerConfig(data=FULL_DATA, model_type=FULL_MODEL,
+                                    device=str(dev), **FULL_RECIPE),
+                      model, characters)
+    seed = fold_in(trainer.dropout_seed, 0)      # epoch 0's dropout seed
+    loader = trainer._loader("train", shuffle=True)
+    loader.set_epoch(0)
+    # the trainer's largest bucket is the last multiple of bucket_step
+    # within max_width: wider lines are cut to it, their labels left whole
+    largest = max(loader.collate_fn.bucket_spec.widths)
+    cropped = float((loader._item_widths() > largest).mean())
+    widths, kept = [], []
+
+    def live():
+        it = trainer._device_iter(loader)
+        for i, batch in zip(range(steps), it):
+            widths.append(int(batch["images"].shape[2]))
+            if i >= steps - FULL_REPLAYED:
+                kept.append(batch)
+            yield batch
+        it.close()
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, events = timed_steps(trainer, live(), seed)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    skipped = sum(float(m["skipped"]) for m in metrics)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"train_full: losses {losses}")
+    check(skipped == 0, f"train_full: {skipped:.0f} steps skipped")
+    check(losses[-1] < losses[0],
+          f"train_full: loss {losses[0]} at step 1, {losses[-1]} at "
+          f"step {steps}")
+    ms = steps_ms(events)
+    lines = FULL_RECIPE["batch_size"] * (steps - FULL_TIMED_FROM)
+    timed_s = events[FULL_TIMED_FROM].elapsed_time(events[steps]) / 1e3
+    flops = {w: 3 * train_flops(trainer.model, FULL_RECIPE["batch_size"],
+                                w, dev) for w in sorted(set(widths))}
+    timed_flops = sum(flops[w] for w in widths[FULL_TIMED_FROM:])
+    # the last batches again: under the profiler, then with remat
+    replay_ms = events[steps - FULL_REPLAYED].elapsed_time(events[steps])
+    busy_ms, n_launch, top = profile_steps(trainer, kept, seed)
+    trainer.model.cnn.remat = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_metrics, remat_events = timed_steps(trainer, kept, seed)
+    remat_peak = torch.cuda.max_memory_allocated()
+    trainer.model.cnn.remat = False
+    check(all(np.isfinite(float(m["loss"])) for m in remat_metrics),
+          "train_full: a remat loss is not finite")
+    syncs = host_syncs(lambda: trainer.train_step(trainer.state, kept[0],
+                                                  seed))
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    check(not any(launched.values()),
+          f"train_full: K1-K4 launched in training: {launched}")
+    by_width = {str(w): statistics.median(
+        [t for t, x in zip(ms[FULL_TIMED_FROM:], widths[FULL_TIMED_FROM:])
+         if x == w]) for w in sorted(set(widths[FULL_TIMED_FROM:]))}
+    out = {"model": f"{FULL_MODEL} (bf16 compute, f32 parameters, dropout "
+                    "on)", "params": n_params,
+           "classes": len(characters) + 2, "data": f"{FULL_DATA}/train",
+           "recipe": FULL_RECIPE, "steps": steps,
+           "largest_bucket": largest, "lines_wider_share": cropped,
+           "loss_step_1": losses[0], f"loss_step_{steps}": losses[-1],
+           "losses": losses, "skipped": skipped, "widths": widths,
+           "ms_per_step_median": statistics.median(ms[FULL_TIMED_FROM:]),
+           "ms_per_step_median_by_width": by_width,
+           "lines_per_s": lines / timed_s,
+           "timed_steps": f"{FULL_TIMED_FROM + 1}-{steps}",
+           "wall_s_all_steps": wall_s,
+           "train_flops_per_step_by_width": {str(w): f
+                                             for w, f in flops.items()},
+           "bf16_peak_share": timed_flops / timed_s / BF16_OPS_PER_S,
+           "peak_memory_bytes": peak,
+           "profiled_steps": FULL_REPLAYED,
+           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+           "device_idle_share": (1 - busy_ms / replay_ms if busy_ms > 0
+                                 else "not measured"),
+           "unprofiled_ms_same_steps": replay_ms,
+           "kernel_launches_profiled": n_launch, "top_kernels": top,
+           "remat": {"ms_per_step_median": statistics.median(
+                         steps_ms(remat_events)),
+                     "ms_same_steps_plain": replay_ms,
+                     "ms_same_steps": remat_events[0].elapsed_time(
+                         remat_events[-1]),
+                     "peak_memory_bytes": remat_peak},
+           "host_syncs_in_one_step": syncs,
+           "k1_k4_launches": launched}
+    emit({"phase": "train_full", **out})
+    return out
+
+
+def phase_train_cli(dev) -> dict:
+    """``cli/train.py`` as a user runs it, in a subprocess: a warm start
+    from the converted demo/hard weights and one epoch of demo/hard's 1200
+    training lines at batch 8, then the trainer's test evaluation. The
+    checkpoints carry the JAX trainer's names, the test accuracy is within
+    ``TRAIN_CLI_ACC_TOL`` of the JAX CLI's on the same command, and the
+    eval CLI (``cli/test.py -bm -dm greedy-search``) on the saved
+    checkpoint gives ``1 - acc``."""
+    import io
+    import re
+    import tempfile
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        os.makedirs(data)
+        for name in ("train", "test", "train_img_id_gt.txt",
+                     "test_img_id_gt.txt", "chars_list.txt"):
+            os.symlink(os.path.abspath(os.path.join(DEMO_HARD, name)),
+                       os.path.join(data, name))
+        argv = ["-m", "hctr-tiny", "-d", data, "-re",
+                f"{DEMO_ASSETS}/hctr_tiny.pt", "-b", "8", "-ep", "1",
+                "--seed", "0", "--out-dir", out_dir]
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m",
+             "handwritten_chinese_ocr_samples_torch.cli.train", *argv],
+            capture_output=True, text=True, timeout=TRAIN_CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0,
+              f"train_cli: exit {run.returncode}: {run.stderr[-2000:]}")
+        printed = re.findall(r"epoch 0: test acc ([0-9.]+)", run.stdout)
+        check(len(printed) == 1 and "warm start" in run.stdout,
+              f"train_cli: {run.stdout[-2000:]}")
+        acc = float(printed[0])
+        files = sorted(os.listdir(out_dir))
+        want = sorted(["hctr-tiny_checkpoint",
+                       f"hctr-tiny_1ep_{printed[0]}acc_checkpoint"])
+        check(files == want, f"train_cli: files {files}, not {want}")
+        check(abs(acc - JAX_CLI_ACC) <= TRAIN_CLI_ACC_TOL,
+              f"train_cli: test acc {acc} vs the JAX CLI's {JAX_CLI_ACC}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cer = eval_cli.main(["-m", "hctr-tiny", "-f",
+                                 os.path.join(out_dir,
+                                              "hctr-tiny_checkpoint"),
+                                 "-i", data, "-bm", "-b", "8",
+                                 "-dm", "greedy-search", "-d", str(dev)])
+        check(f"{1 - cer:.4f}" == printed[0],
+              f"train_cli: eval CLI CER {cer} vs trainer acc {acc}")
+    out = {"argv": " ".join(["cli.train", *argv]).replace(tmp, "<tmp>"),
+           "test_acc": acc, "jax_cli_test_acc_cpu": JAX_CLI_ACC,
+           "abs_diff": abs(acc - JAX_CLI_ACC),
+           "tolerance": TRAIN_CLI_ACC_TOL, "eval_cli_cer": cer,
+           "checkpoints": files, "wall_s": wall}
+    emit({"phase": "train_cli", **out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -1815,6 +2352,11 @@ def main() -> int:
     info = _build.build_all()      # one nvcc per source, all together
     emit({"phase": "build", "libraries": info,
           "wall_s": time.perf_counter() - t0})
+    if "--train" in sys.argv[1:]:    # the training phases alone
+        phase_train_parity(dev)
+        phase_train_full(dev)
+        phase_train_cli(dev)
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 alone, times before checks
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -1836,11 +2378,15 @@ def main() -> int:
     paths["demo_hard_ss"] = phase_demo_hard(dev)
     phase_demo_hard_host(dev)
     paths["eval_lm_ss"] = phase_eval_demo_hard(dev)
+    phase_train_parity(dev)
+    train = phase_train_full(dev)
+    phase_train_cli(dev)
     # the kernels' launches on the skip route's main paths
     skip = {name: sum(c[name] for c in paths.values())
             for name in launch_counts()}
     emit({"phase": "launches", "beam": {"topk_logsoftmax": launches},
-          "lm_full_search": lm_counts, **paths, "skip_route": skip})
+          "lm_full_search": lm_counts, **paths, "skip_route": skip,
+          "training": train["k1_k4_launches"]})
     ss_err = {name: max([t["max_abs_err"] for key, t in ss_kernels.items()
                          if key.split("@")[0] == name] or [0.0])
               for name in skip}

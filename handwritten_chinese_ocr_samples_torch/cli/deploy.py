@@ -119,8 +119,9 @@ def build_argparser():
 
 def load_weights(spec: str, model):
     """``seed:<n>`` -> seeded random weights; else a ``torch.save``d state
-    dict."""
+    dict or a checkpoint of the port's trainer."""
     import torch
+    from ..train.checkpoint import state_dict_of
     from ..utils.weights import seeded_state_dict
     if spec.startswith("seed:"):
         return seeded_state_dict(model, int(spec.split(":", 1)[1]))
@@ -129,7 +130,8 @@ def load_weights(spec: str, model):
             f"{spec} is a directory (an orbax checkpoint?): the port reads "
             "torch state dicts; convert with utils.weights.flax_to_torch "
             "where JAX is installed")
-    return torch.load(spec, map_location="cpu", weights_only=True)
+    return state_dict_of(torch.load(spec, map_location="cpu",
+                                    weights_only=True))
 
 
 def main(argv=None):

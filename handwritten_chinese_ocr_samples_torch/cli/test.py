@@ -16,8 +16,8 @@ surface of the reference's `test.py:24-106`).
     python -m ...cli.test ... -bm -dm beam-search -ss -kp <ngram.hblm>
 
 ``-f`` takes the port's state dict (``torch.save``, e.g. ``utils.weights.
-flax_to_torch`` of a JAX checkpoint) or ``seed:<n>``; ``-d cpu`` runs on the
-CPU. The flags of surfaces the port does not have yet stop with an error
+flax_to_torch`` of a JAX checkpoint), a checkpoint of the port's trainer
+(``<model>_checkpoint``) or ``seed:<n>``; ``-d cpu`` runs on the CPU. The flags of surfaces the port does not have yet stop with an error
 that names their ROADMAP item, as a reference ``.pth``/``.pth.tar`` file
 does.
 """
@@ -52,7 +52,8 @@ def build_argparser():
                       help="target model for different languages/scenarios")
     args.add_argument("-f", "--model-file", dest="model_file", type=str,
                       metavar="PATH", required=True,
-                      help="torch state dict (.pt) or 'seed:<n>'")
+                      help="torch state dict (.pt), a checkpoint of the "
+                           "port's trainer, or 'seed:<n>'")
     args.add_argument("-i", "--input", dest="input", type=str,
                       metavar="PATH", required=True,
                       help="path to input image or testset")

@@ -1,15 +1,16 @@
 """Text <-> CTC index codec (host side, pure numpy).
 
 The port's own copy of the JAX package's ``core/codec.py``, cut to what the
-serving and host beam paths use: the class space is ``['<blank>'] + chars +
-['<unknown>']``, so ``blank_id`` is 0 and ``unknown_id`` is the last class,
-``dict`` maps a character to its class, and decoded index rows become
-strings on the host.
+serving, host beam and training paths use: the class space is
+``['<blank>'] + chars + ['<unknown>']``, so ``blank_id`` is 0 and
+``unknown_id`` is the last class, ``dict`` maps a character to its class,
+labels are encoded for the CTC loss, and decoded index rows become strings
+on the host.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +43,32 @@ class CTCCodec:
     @property
     def num_classes(self) -> int:
         return len(self.characters)
+
+    def encode(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """Text labels -> concatenated int32 index stream + int32 lengths;
+        unknown characters map to the unknown index."""
+        lengths = np.array([len(s) for s in texts], dtype=np.int32)
+        flat = np.fromiter(
+            (self.dict.get(ch, self.unknown_id) for s in texts for ch in s),
+            dtype=np.int32,
+            count=int(lengths.sum()),
+        )
+        return flat, lengths
+
+    def encode_padded(
+        self, texts: Sequence[str], max_len: int | None = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Text labels -> ``(B, L)`` int32 labels + ``(B, L)`` f32 paddings
+        (1.0 marks padding); labels longer than ``max_len`` are cut."""
+        lengths = [len(s) for s in texts]
+        L = max_len if max_len is not None else max(lengths + [1])
+        labels = np.zeros((len(texts), L), dtype=np.int32)
+        paddings = np.ones((len(texts), L), dtype=np.float32)
+        for i, s in enumerate(texts):
+            n = min(len(s), L)
+            labels[i, :n] = [self.dict.get(ch, self.unknown_id) for ch in s[:n]]
+            paddings[i, :n] = 0.0
+        return labels, paddings
 
     def compact_to_texts(self, chars: np.ndarray,
                          lengths: np.ndarray) -> List[str]:

@@ -16,9 +16,11 @@ from ..core.codec import load_chars_list
 from .hctr import HCTRModel, hctr_model
 
 
-def _hctr_tiny(num_classes: int, compute_dtype: torch.dtype) -> HCTRModel:
+def _hctr_tiny(num_classes: int, compute_dtype: torch.dtype,
+               **kwargs) -> HCTRModel:
     return HCTRModel(num_classes=num_classes, backbone_channels=64,
-                     num_blocks=(1, 1, 1, 1), compute_dtype=compute_dtype)
+                     num_blocks=(1, 1, 1, 1), compute_dtype=compute_dtype,
+                     **kwargs)
 
 
 _REGISTRY = {"hctr": hctr_model, "hctr-tiny": _hctr_tiny}
@@ -50,12 +52,13 @@ def discover_chars_list(input_path: str | None = None) -> str:
 
 def get_model_info(model_type: str, data_dir: str | None = None,
                    chars_list_file: str | None = None,
-                   dtype: torch.dtype = torch.float32
+                   dtype: torch.dtype = torch.float32, **kwargs
                    ) -> Tuple[HCTRModel, str]:
     """Resolve ``(model, characters)`` for a model tag; ``dtype`` is the
-    compute dtype. ``num_classes = 1 (blank) + len(characters) + 1
-    (unknown)``. The model holds PyTorch's default initialisation until a state
-    dict is loaded."""
+    compute dtype, ``kwargs`` the model's train-mode fields (``stage_drop``,
+    ``block_drop``, ``remat``). ``num_classes = 1 (blank) +
+    len(characters) + 1 (unknown)``. The model holds PyTorch's default
+    initialisation until a state dict is loaded."""
     if model_type not in _REGISTRY:
         raise ValueError(f"Model type: {model_type} not supported "
                          f"(available: {list_models()})")
@@ -65,5 +68,5 @@ def get_model_info(model_type: str, data_dir: str | None = None,
                            else discover_chars_list(data_dir))
     characters = load_chars_list(chars_list_file)
     model = _REGISTRY[model_type](num_classes=len(characters) + 2,
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype, **kwargs)
     return model, characters

@@ -14,6 +14,9 @@ as nested dicts of numpy arrays (however the caller read it) and returns a
 ``seeded_state_dict`` makes full-size random weights from a seed, the only
 way to get weights onto a machine that cannot read the orbax checkpoints.
 
+``init_state_dict`` is the start of a training run from scratch: flax's
+default initialisers, drawn from a ``torch.Generator``.
+
 ``lm_flax_to_torch`` and ``seeded_lm_state_dict`` do the same for the char
 LM (``lm/model.CharTransformerLM``): flax attention kernels ``(d, H, Dh)``
 become ``nn.Linear`` weights ``(H*Dh, d)``, the output kernel ``(H, Dh, d)``
@@ -87,6 +90,34 @@ def seeded_state_dict(model: torch.nn.Module,
         if name == "weight" and t.dim() >= 2:
             out[key] = torch.randn(t.shape, generator=g) / math.sqrt(
                 t[0].numel())
+        elif name in ("weight", "running_var"):
+            out[key] = torch.ones(t.shape)
+        else:
+            out[key] = torch.zeros(t.shape)
+    return out
+
+
+# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal")
+# draws N(0, 1) cut at +-2 and scales it by sqrt(1 / fan_in) over the cut
+# normal's standard deviation
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_state_dict(model: torch.nn.Module,
+                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """flax's default initialisation of ``model`` in f32: conv and dense
+    kernels lecun-normal (a normal truncated at two standard deviations,
+    std ``sqrt(1 / fan_in) / 0.8796``), biases 0, BatchNorm scale 1 and
+    bias 0, running mean 0 and running variance 1."""
+    out = {}
+    for key, t in model.state_dict().items():
+        name = key.rsplit(".", 1)[-1]
+        if name == "weight" and t.dim() >= 2:
+            std = math.sqrt(1.0 / t[0].numel()) / _TRUNC_STD
+            w = torch.empty(t.shape)
+            torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                        generator=generator)
+            out[key] = w
         elif name in ("weight", "running_var"):
             out[key] = torch.ones(t.shape)
         else:
