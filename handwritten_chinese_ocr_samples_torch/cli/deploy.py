@@ -3,7 +3,8 @@
     python -m handwritten_chinese_ocr_samples_torch.cli.deploy \\
         -m <weights.pt | seed:<n>> -i <image or folder> [-dm beam-search] \\
         [-b 4] [--daemon] [-cl chars_list.txt] [-d cuda] \\
-        [-utp -uts -tp <lm dir | seed:<n>> [-ss]] [-ss -kp <ngram>]
+        [-utp -uts -tp <lm dir | seed:<n>> [-ss] [--lm-int8]] \\
+        [-ss -kp <ngram>] [--int8]
 
 ``-m`` takes a torch state dict saved with ``torch.save`` (for example
 ``utils.weights.flax_to_torch`` of a JAX checkpoint, converted where JAX is
@@ -15,9 +16,10 @@ search, and ``-ss`` its skip search (the production LM route; ``--prune``,
 ``--seg-budget``, ``--run-max``, ``--ctx-ladder`` and ``--fused-commit``
 size it). ``-kp`` takes an n-gram LM (text ARPA or HBLM) that scores the
 beams of the host beam search, which also serves ``-ss`` without a
-transformer LM and ``-utp`` without ``-uts``. The flags are the JAX CLI's;
-those of the int8 routes, which the port does not have yet, stop with an
-error that names the ROADMAP item.
+transformer LM and ``-utp`` without ``-uts``. ``--int8`` serves the
+recognizer's convs in int8, calibrated on the first request's batch;
+``--lm-int8`` runs the LM-fused search's LM step in int8. The flags are the
+JAX CLI's.
 """
 
 from __future__ import annotations
@@ -26,12 +28,6 @@ import argparse
 import logging as log
 import os
 import sys
-
-# flag -> (default, route): a flag set to anything but its default asks for
-# a route the port does not have yet (keys of ``serve.engine._LATER``)
-_UNPORTED = {
-    "lm_int8": (False, "int8"), "int8": (False, "int8"),
-}
 
 
 def build_argparser():
@@ -109,11 +105,13 @@ def build_argparser():
     args.add_argument("--fused-commit", dest="fused_commit",
                       action="store_true", help="skip search: write a run's "
                       "tokens with the next reorder")
-    later = parser.add_argument_group(
-        "Not ported yet", "int8 routes (ROADMAP.md); setting any of these "
-        "stops with an error")
-    later.add_argument("--lm-int8", dest="lm_int8", action="store_true")
-    later.add_argument("--int8", dest="int8", action="store_true")
+    args.add_argument("--lm-int8", dest="lm_int8", action="store_true",
+                      help="int8-quantize the fused LM's FF and logits "
+                           "matmuls")
+    args.add_argument("--int8", dest="int8", action="store_true",
+                      help="post-training int8 quantization of the "
+                           "recognizer convs (calibrated on the first "
+                           "request)")
     return parser
 
 
@@ -142,14 +140,7 @@ def main(argv=None):
     import torch
     from ..core.codec import CTCCodec
     from ..models.registry import get_model_info
-    from ..serve.engine import _LATER, ServingEngine
-
-    unported = {k: route for k, (default, route) in _UNPORTED.items()
-                if getattr(args, k) != default}
-    if unported:
-        parser.error(f"not ported yet: {', '.join(unported)}: "
-                     + "; ".join(sorted({_LATER[r]
-                                         for r in unported.values()})))
+    from ..serve.engine import ServingEngine
 
     model, characters = get_model_info(
         args.language,
@@ -175,7 +166,8 @@ def main(argv=None):
         lm_ctx=args.lm_ctx, lm_group=args.lm_group,
         seg_budget=args.seg_budget, run_max=args.run_max,
         ctx_ladder=args.ctx_ladder, fused_commit=args.fused_commit,
-        lm_f32=args.lm_f32, prune=args.prune, device=args.device)
+        lm_f32=args.lm_f32, lm_int8=args.lm_int8, int8=args.int8,
+        prune=args.prune, device=args.device)
     lm_name = "" if lm is None else ", LM " + getattr(lm, "path",
                                                       args.tfm_path)
     log.info(f"Serving {args.language} on {engine.device} "

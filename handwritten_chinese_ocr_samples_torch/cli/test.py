@@ -15,6 +15,11 @@ surface of the reference's `test.py:24-106`).
     # beam search + n-gram (host beam, native decoder)
     python -m ...cli.test ... -bm -dm beam-search -ss -kp <ngram.hblm>
 
+    # int8 recognizer convs (first-batch calibration), int8 LM step
+    python -m ...cli.test ... -bm -dm greedy-search --int8
+    python -m ...cli.test ... -bm -dm beam-search -utp -uts -tp <lm_dir> \\
+        -ss --int8 --lm-int8
+
 ``-f`` takes the port's state dict (``torch.save``, e.g. ``utils.weights.
 flax_to_torch`` of a JAX checkpoint), a checkpoint of the port's trainer
 (``<model>_checkpoint``) or ``seed:<n>``; ``-d cpu`` runs on the CPU. The flags of surfaces the port does not have yet stop with an error
@@ -28,14 +33,10 @@ import argparse
 
 import numpy as np
 
-from ..serve.engine import _LATER
-
 # flag -> (default, what is missing)
 _UNPORTED = {
     "data_parallel": (0, "data-parallel eval over several cards "
                          "(ROADMAP.md queue 1, item 8)"),
-    "int8": (False, _LATER["int8"]),
-    "lm_int8": (False, _LATER["int8"]),
     "profile": ("", "the profiler trace of utils/profiling.py (ROADMAP.md "
                     "queue 1, item 9)"),
 }
@@ -117,6 +118,14 @@ def build_argparser():
                       "tokens with the next reorder")
     args.add_argument("--lm-f32", dest="lm_f32", action="store_true",
                       help="run the fused LM in float32 (default bfloat16)")
+    args.add_argument("--lm-int8", dest="lm_int8", action="store_true",
+                      help="int8-quantize the fused LM's FF and logits "
+                           "matmuls (per-channel weight scales, dynamic "
+                           "activation scale; attention/KV stay bf16)")
+    args.add_argument("--int8", dest="int8", action="store_true",
+                      help="post-training int8 quantization of the "
+                           "recognizer convs (calibrated on the first "
+                           "batch)")
     args.add_argument("-jw", "--workers", type=int, metavar="N", default=4,
                       help="number of data loading workers (benchmark mode)")
     args.add_argument("-tv", "--test-verbose", dest="test_verbose",
@@ -142,8 +151,6 @@ def build_argparser():
         "an error")
     later.add_argument("-dp", "--data-parallel", dest="data_parallel",
                        type=int, metavar="N", default=0)
-    later.add_argument("--int8", dest="int8", action="store_true")
-    later.add_argument("--lm-int8", dest="lm_int8", action="store_true")
     later.add_argument("--profile", default="", metavar="DIR")
     return parser
 

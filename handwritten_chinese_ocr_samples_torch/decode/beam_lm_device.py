@@ -182,7 +182,7 @@ def _grouped_peek(clm: CachedLM, cache: LMCache, tokens: torch.Tensor,
                           v.float())
         o = peek_attention.merge_partials(o1, m1, l1, o2, m2, p2.sum(-1))
         h = h + clm._attn_out(o.to(h.dtype), li)
-        h = h + clm._ff(clm._ln(h, lp["ln2"]), li)
+        h = h + clm._ff_float(clm._ln(h, lp["ln2"]), li)
 
     xs = clm._ln(h, clm.ln_f)                                # (NB, R, Sc, d)
     s_valid = (torch.arange(1, S1, device=tokens.device)

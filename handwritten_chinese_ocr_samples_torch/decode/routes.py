@@ -131,15 +131,17 @@ def build_route(codec, decode_method: str = "greedy-search", lm=None, *,
                 beam_size: int = 10, search_depth: int = 10,
                 lm_panelty: float = 1.9, len_bonus: float = 5.7,
                 prune: float = 0.001, lm_f32: bool = False,
-                lm_group: int = 8, lm_ctx: int = 0, seg_budget: int = 0,
-                run_max: int = 8, ctx_ladder: int = 112,
+                lm_int8: bool = False, lm_group: int = 8, lm_ctx: int = 0,
+                seg_budget: int = 0, run_max: int = 8, ctx_ladder: int = 112,
                 fused_commit: bool = False,
                 device: str | torch.device = "cuda") -> DecodeRoute:
     """The route of a configuration, with its decoder built. ``lm`` is a
     ``decode/lm_interface`` backend or None; a transformer LM's proposals
     run on ``device``. ``prune`` is the skip search's ambiguity threshold, a
     probability; ``lm_group`` to ``fused_commit`` are
-    ``decode/adaptive.AdaptiveLMBeam``'s, the LM in bf16 unless ``lm_f32``.
+    ``decode/adaptive.AdaptiveLMBeam``'s, the LM in bf16 unless ``lm_f32``,
+    its step's FF and logits products in int8 with ``lm_int8`` (the device
+    search's LM only; other routes ignore it, as in the JAX engine).
     A native library that does not build raises."""
     if decode_method not in ("greedy-search", "beam-search"):
         raise ValueError(f"unknown decode method {decode_method!r}")
@@ -155,7 +157,7 @@ def build_route(codec, decode_method: str = "greedy-search", lm=None, *,
         from .beam_lm_device import make_id_tables
         clm = CachedLM(lm.lm_model, lm.lm_params,
                        dtype=torch.float32 if lm_f32 else torch.bfloat16,
-                       device=device)
+                       quant_int8=lm_int8, device=device)
         c2l, l2c = make_id_tables(codec, lm.tokenizer)
         return DecodeRoute("lm", **kw, lm_beam=AdaptiveLMBeam(
             clm, c2l, l2c, beam_size=beam_size, depth=search_depth,

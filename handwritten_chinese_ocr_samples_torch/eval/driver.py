@@ -3,7 +3,9 @@ reference's `test.py:109-306`).
 
 ``-f`` takes the port's state dict (``cli/deploy.load_weights``: a
 ``torch.save``d state dict or ``seed:<n>``). The recognizer runs in bf16, as
-the JAX driver builds it. Decode routes (``decode/routes``, which the
+the JAX driver builds it; ``--int8`` runs its convs in int8, calibrated on
+the first batch (``serve/quant``), and ``--lm-int8`` the LM-fused search's
+LM step. Decode routes (``decode/routes``, which the
 serving engine shares), as the JAX driver routes them:
 
   * ``greedy-search``: forward + greedy collapse on the device;
@@ -28,6 +30,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ..serve import quant
 
 
 def build_beam_decoder(codec, args, device="cuda"):
@@ -56,7 +60,8 @@ def build_beam_decoder(codec, args, device="cuda"):
                                      and not args.use_tfm_score),
         beam_size=args.beam_size, search_depth=args.search_depth,
         lm_panelty=args.lm_panelty, len_bonus=args.len_bonus,
-        prune=args.prune, lm_f32=args.lm_f32, lm_group=args.lm_group,
+        prune=args.prune, lm_f32=args.lm_f32, lm_int8=args.lm_int8,
+        lm_group=args.lm_group,
         lm_ctx=args.lm_ctx, seg_budget=args.seg_budget,
         run_max=args.run_max, ctx_ladder=args.ctx_ladder,
         fused_commit=args.fused_commit, device=device)
@@ -81,6 +86,12 @@ class EvalSession:
         self.model = model.to(self.device).eval()
         self.codec = CTCCodec(characters)
         self.route = build_beam_decoder(self.codec, args, self.device)
+        # int8 conv scales (``serve/quant``), calibrated on the first batch
+        self.int8 = bool(args.int8)
+        self._quant = None
+        if self.int8 and not quant.supports_quant(self.model):
+            raise ValueError(f"--int8: model '{args.model_type}' has no "
+                             f"quantized conv path")
         if self.route.name == "lm" and not args.skip_search:
             print("note: full (non-skip) LM-fused beam search is "
                   "~an order of magnitude slower than `-ss` "
@@ -97,6 +108,8 @@ class EvalSession:
         t0 = time.time()
         x = torch.from_numpy(np.ascontiguousarray(images_nhwc)).to(
             self.device, non_blocking=True)
+        if self.int8 and self._quant is None:
+            self._quant = quant.calibrate_for_model(self.model, [x])
         texts = self.route.dispatch(self.model(x))
 
         def finalize():

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops import cache_gather
+from ..ops import cache_gather, int8_conv
 from .model import layer_norm
 
 NEG = -1e30
@@ -35,15 +35,12 @@ class LMCache(NamedTuple):
 
 class CachedLM:
     """Single-token step and cache reorder over a ``CharTransformerLM``
-    state dict (``lm/model.py`` names)."""
+    state dict (``lm/model.py`` names); ``quant_int8`` runs the step's FF
+    and logits products in int8."""
 
     def __init__(self, model, state_dict, dtype: Optional[torch.dtype] = None,
                  quant_int8: bool = False,
                  device: Optional[torch.device] = None):
-        if quant_int8:
-            raise NotImplementedError(
-                "not ported yet: int8 LM matmuls (ROADMAP.md queue 1, "
-                "item 5)")
         if not model.tie_embeddings:
             raise ValueError("CachedLM scores with the tied embedding; this "
                              "LM has a separate head")
@@ -85,6 +82,24 @@ class CachedLM:
                 "ff2_b": w(p + "ff2.bias"),
             })
         self.device = self.emb.device
+        # int8 step (``quant_int8``): FF1, FF2 and the tied logits run
+        # s8 x s8 -> s32 (kernel I1 on the card) with static per-out-channel
+        # weight scales from the compute-dtype weights and a dynamic
+        # per-tensor scale of the live x, as the JAX package's ``_q_mm``.
+        # Attention, the KV cache and the LayerNorms stay in the compute
+        # dtype, and so do the peeks of ``decode/beam_lm_device``: only
+        # ``step`` takes the int8 branch, as in the JAX package.
+        self.quant_int8 = bool(quant_int8)
+        self._wq = {}
+        if self.quant_int8:
+            def quant(name, w_out_in):               # (N, K) -> packed s8
+                w_q, s_w = int8_conv.quantize_weight(w_out_in, (1,))
+                self._wq[name] = (int8_conv.pack_weight(w_q),
+                                  s_w.reshape(-1))
+            for i, lp in enumerate(self.layers):
+                quant(f"ff1_{i}", lp["ff1_w"].T)
+                quant(f"ff2_{i}", lp["ff2_w"].T)
+            quant("logits", self.emb)
 
     # ------------------------------------------------------------ plumbing
     def init_cache(self, B: int, max_len: int) -> LMCache:
@@ -131,6 +146,20 @@ class CachedLM:
         return o.reshape(*o.shape[:-2], -1) @ lp["out_w"] + lp["out_b"]
 
     def _ff(self, h, li):
+        """FF1 -> ReLU -> FF2 of ``step``: int8 under ``quant_int8``, each
+        stage dequantised in f32 with its bias, then the compute dtype."""
+        if not self.quant_int8:
+            return self._ff_float(h, li)
+        lp = self.layers[li]
+        rows = h.reshape(-1, h.shape[-1])
+        y = torch.relu(int8_conv.linear_int8(
+            rows, *self._wq[f"ff1_{li}"], lp["ff1_b"].float(), self.dtype))
+        y = int8_conv.linear_int8(y, *self._wq[f"ff2_{li}"],
+                                  lp["ff2_b"].float(), self.dtype)
+        return y.view(*h.shape[:-1], -1)
+
+    def _ff_float(self, h, li):
+        """FF1 -> ReLU -> FF2 in the compute dtype (the peeks' always)."""
         lp = self.layers[li]
         h = torch.relu(h @ lp["ff1_w"] + lp["ff1_b"])
         return h @ lp["ff2_w"] + lp["ff2_b"]
@@ -145,8 +174,13 @@ class CachedLM:
 
     def _logits(self, x):
         """Final LayerNorm and the tied head, f32 logits (f32 products of
-        the compute-dtype operands)."""
+        the compute-dtype operands, or int8 under ``quant_int8``)."""
         x = self._ln(x, self.ln_f)
+        if self.quant_int8:
+            rows = x.reshape(-1, x.shape[-1])
+            return int8_conv.linear_int8(rows, *self._wq["logits"], None,
+                                         torch.float32).view(
+                                             *x.shape[:-1], -1)
         return x.float() @ self.emb32.T
 
     # ---------------------------------------------------------------- step

@@ -37,14 +37,43 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.dropout import dropout_recompute, fold_in
+from ..ops.int8_conv import QuantConv
 
 
 class Conv(nn.Conv2d):
-    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype."""
+    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype.
+
+    A site may carry an int8 state (``int8``, an ``ops/int8_conv.QuantConv``,
+    put on by ``set_amax`` with the calibrated absmax of its input): it then
+    runs s8 x s8 -> s32 and dequantises into the input's dtype, as the JAX
+    package's ``QuantizableConv`` (its ``models/hctr.py:59``) does. Without
+    one it is the float path. Inference only."""
+
+    int8: Optional[QuantConv] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8 is not None:
+            return self.int8(x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+    def set_amax(self, amax: Optional[float]) -> None:
+        """Put this site's int8 state on, from the absmax of its input (its
+        f32 weight read now), or take it off (``amax`` None)."""
+        if amax is None:
+            self.int8 = None
+            return
+        # the int8 path implements the plain-conv subset this model uses;
+        # fail loudly if a site strays from it
+        if (self.stride != (1, 1) or self.groups != 1
+                or self.dilation != (1, 1) or self.padding_mode != "zeros"
+                or self.kernel_size not in ((3, 3), (1, 1))
+                or self.padding != (self.kernel_size[0] // 2,
+                                    self.kernel_size[1] // 2)):
+            raise NotImplementedError(
+                "Conv int8 path supports stride-1, undilated, ungrouped "
+                "convs only (3x3 padded 1, or 1x1)")
+        self.int8 = QuantConv(self.weight, self.bias, amax)
 
 
 def _stats_dtype(x: torch.Tensor) -> torch.dtype:
@@ -109,6 +138,11 @@ class BatchNorm(nn.Module):
             self.batch_stats = (mean, var)
             return y
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        if x.dtype != torch.bfloat16:
+            # flax's order of operations, so that an int8 site after it
+            # rounds the same f32 values as the JAX package's
+            return ((x - self.running_mean[:, None, None])
+                    * mul[:, None, None] + self.bias[:, None, None])
         add = self.bias - self.running_mean * mul
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 

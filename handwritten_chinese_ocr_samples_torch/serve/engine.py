@@ -22,12 +22,7 @@ import numpy as np
 import torch
 
 from ..decode.routes import build_route
-
-# Routes of the JAX engine that later slices port (ROADMAP.md, queue 1).
-_LATER = {
-    "int8": "int8 serving and int8 LM matmuls (ROADMAP.md queue 1, "
-            "item 5)",
-}
+from . import quant
 
 
 def _read_gray(image_file: str) -> np.ndarray:
@@ -105,8 +100,13 @@ class ServingEngine:
     ``fused_commit`` are ``decode/adaptive.AdaptiveLMBeam``'s). The other
     beam configurations that consult an LM or skip frames take the host
     beam (``lm`` a ``KenLMBackend`` or a ``TorchLMBackend``), as in the JAX
-    engine. The int8 routes raise ``NotImplementedError`` until the port
-    has them; no route falls back to another.
+    engine; no route falls back to another.
+
+    ``int8`` serves the recognizer's conv sites in int8 (``serve/quant``):
+    the first batch calibrates them (``_quant`` is None until then) and the
+    int8 state goes onto ``model``'s sites. ``lm_int8`` runs the device LM
+    search's step in int8 and is ignored on the other routes, as in the JAX
+    engine.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict, codec,
@@ -131,10 +131,10 @@ class ServingEngine:
                  int8: bool = False,
                  prune: float = 0.001,
                  device: str | torch.device = "cuda"):
-        is_tfm = lm is not None and hasattr(lm, "lm_model")
-        if int8 or (lm_int8 and is_tfm and use_lm_score
-                    and decode_method == "beam-search"):
-            raise NotImplementedError(f"not ported yet: {_LATER['int8']}")
+        if int8 and not quant.supports_quant(model):
+            raise ValueError("int8: this model has no quantized conv path")
+        self._int8 = bool(int8)
+        self._quant = None
         self.device = torch.device(device)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
@@ -145,7 +145,7 @@ class ServingEngine:
             use_lm_score=use_lm_score, skip_search=skip_search,
             beam_size=beam_size, search_depth=search_depth,
             lm_panelty=lm_panelty, len_bonus=len_bonus, prune=prune,
-            lm_f32=lm_f32, lm_group=lm_group, lm_ctx=lm_ctx,
+            lm_f32=lm_f32, lm_int8=lm_int8, lm_group=lm_group, lm_ctx=lm_ctx,
             seg_budget=seg_budget, run_max=run_max, ctx_ladder=ctx_ladder,
             fused_commit=fused_commit, device=self.device)
         self._device_lm_beam = self.route.name == "lm"
@@ -177,7 +177,10 @@ class ServingEngine:
     def infer_batch(self, batch_u8: np.ndarray) -> List[str]:
         """``(b, H, W, 1)`` uint8 batch -> one text per row."""
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        return self.decode_logits(self.model((x.float() - 127.5) / 127.5))
+        x = (x.float() - 127.5) / 127.5
+        if self._int8 and self._quant is None:
+            self._quant = quant.calibrate_for_model(self.model, [x])
+        return self.decode_logits(self.model(x))
 
     @torch.inference_mode()
     def decode_logits(self, logits: torch.Tensor) -> List[str]:

@@ -21,6 +21,9 @@ default initialisers, drawn from a ``torch.Generator``.
 LM (``lm/model.CharTransformerLM``): flax attention kernels ``(d, H, Dh)``
 become ``nn.Linear`` weights ``(H*Dh, d)``, the output kernel ``(H, Dh, d)``
 becomes ``(d, H*Dh)``, and ``embed/embedding`` ``(V, d)`` is the tied head.
+
+``quant_flax_to_torch`` flattens the JAX package's nested int8 calibration
+tree (one input absmax a conv site) into the port's keys by module path.
 """
 
 from __future__ import annotations
@@ -180,3 +183,11 @@ def seeded_lm_state_dict(config: Mapping,
         else:
             out[key] = torch.zeros(t.shape)
     return out
+
+
+def quant_flax_to_torch(tree: Mapping) -> Dict[str, float]:
+    """The JAX package's calibration tree ``{"cnn": {"block1_0": {"conv1":
+    a}}}`` -> ``{"cnn.block1_0.conv1": a}`` (``serve/quant``'s keys), each
+    absmax as the float of its f32 value."""
+    return {".".join(path): float(np.float32(leaf))
+            for path, leaf in _walk(tree)}

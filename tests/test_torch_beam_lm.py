@@ -155,9 +155,10 @@ def test_selection_hook(setup):
 
 
 def test_unported_knobs_raise(setup):
-    """The dense LM merge (opt-in in the JAX package) and the int8 LM are
-    not ported: the search, its driver and the cached LM refuse them."""
-    codec, _, clm, (c2l, l2c) = setup
+    """The dense LM merge (opt-in in the JAX package) is not ported: the
+    search and its driver refuse it. The int8 LM, refused until int8 was
+    ported, now builds and its step gives the JAX int8 LM's next token."""
+    codec, jclm, clm, (c2l, l2c) = setup
     kw = dict(KW, unknown_id=codec.unknown_id)
     for extra in (dict(dense_merge=True),
                   dict(dense_merge=True, skip_search=True)):
@@ -168,8 +169,16 @@ def test_unported_knobs_raise(setup):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ad.AdaptiveLMBeam(clm, c2l, l2c, unknown_id=codec.unknown_id,
                               lm_panelty=1.0, len_bonus=1.0, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CachedLM(clm.model, {}, quant_int8=True)
+    q8 = CachedLM(clm.model, lm_flax_to_torch(jax.tree.map(np.asarray,
+                                                          jclm.p)),
+                  quant_int8=True)
+    jq8 = JaxCachedLM(jclm.model, jclm.p, quant_int8=True)
+    sos = np.zeros(3, np.int32)
+    got, _ = q8.step(q8.init_cache(3, 8), torch.from_numpy(sos))
+    want, _ = jq8.step(jq8.init_cache(3, 8), jnp.asarray(sos))
+    assert q8.quant_int8 and sorted(q8._wq) == sorted(jq8._wq)
+    np.testing.assert_array_equal(got.numpy().argmax(-1),
+                                  np.asarray(want).argmax(-1))
 
 
 # ------------------------------------------------------ AdaptiveLMBeam

@@ -39,6 +39,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert chip_smoke.__name__ == "chip_smoke"
+print("modules", " ".join(names))
 print("imported", len(names))
 """
 
@@ -56,9 +57,11 @@ def test_port_imports_without_jax_cv2_pil():
                           env=_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported")[-1])
-    # lm/*, ops/* (ctc and dropout too), decode/*, data/*, eval/*, cli/*
-    # (train too) and train/*
-    assert n >= 51
+    # lm/*, ops/* (ctc, dropout and int8_conv too), decode/*, data/*,
+    # eval/*, cli/* (train too), serve/* (quant too) and train/*
+    assert n >= 53
+    names = proc.stdout.split("modules", 1)[1].split("imported")[0].split()
+    assert {f"{PORT}.ops.int8_conv", f"{PORT}.serve.quant"} <= set(names)
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -236,9 +236,16 @@ def test_cached_lm_matches_full_forward(small_lm):
 
 
 def test_cached_lm_unported_options(small_lm):
+    """An untied LM is refused; ``quant_int8``, refused until int8 was
+    ported, builds s8 FF and logits weights and steps."""
     _, _, model, state = small_lm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CachedLM(model, state, quant_int8=True)
+    q8 = CachedLM(model, state, quant_int8=True)
+    logits, cache = q8.step(q8.init_cache(2, 8),
+                            torch.zeros(2, dtype=torch.long))
+    assert sorted(q8._wq) == ["ff1_0", "ff1_1", "ff2_0", "ff2_1", "logits"]
+    assert logits.shape == (2, model.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert cache.lengths.tolist() == [1, 1]
     untied = CharTransformerLM(vocab_size=12, **SMALL, tie_embeddings=False)
     with pytest.raises(ValueError, match="tied"):
         CachedLM(untied, untied.state_dict())

@@ -59,14 +59,14 @@ def demo():
 
 
 def _jax_engine(variables, method, dtype=jnp.float32, widths=WIDTHS,
-                beam=BEAM, **extra):
+                beam=BEAM, int8=False, **extra):
     with open(CHARS, encoding="utf-8") as f:
         codec = JaxCodec("".join(line.strip("\n") for line in f))
     model = FlaxHCTR(num_classes=codec.num_classes, backbone_channels=64,
                      num_blocks=(1, 1, 1, 1), dtype=dtype)
     kw = dict(beam, **extra) if method == "beam-search" else {}
     return JaxEngine(model, variables, codec, widths=widths,
-                     decode_method=method, **kw)
+                     decode_method=method, int8=int8, **kw)
 
 
 def _port_engine(variables, method, widths=WIDTHS):
@@ -127,9 +127,10 @@ def test_resize_area_matches_opencv(shape, size):
 
 
 def test_unported_routes_raise(demo):
-    """int8 still raises. The host-beam configurations, which raised until
-    the host beam was ported, now build it and serve the JAX engine's
-    texts."""
+    """The host-beam configurations, which raised until the host beam was
+    ported, now build it and serve the JAX engine's texts; so does int8,
+    which raised until int8 serving was ported: its engine calibrates on the
+    first batch and serves the JAX int8 engine's texts."""
     variables, files = demo
     model, chars = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)
@@ -142,9 +143,14 @@ def test_unported_routes_raise(demo):
         want, _ = _jax_engine(variables, "beam-search", **kw).infer_files(
             files)
         assert engine.infer_files(files)[0] == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(model, sd, CTCCodec(chars), device="cpu",
-                      decode_method="beam-search", int8=True)
+    engine = ServingEngine(model, sd, CTCCodec(chars), device="cpu",
+                           widths=WIDTHS, decode_method="beam-search",
+                           int8=True, **BEAM)
+    assert engine._quant is None
+    want, _ = _jax_engine(variables, "beam-search",
+                          int8=True).infer_files(files)
+    assert engine.infer_files(files)[0] == want
+    assert len(engine._quant) == 17
 
 
 @pytest.fixture(scope="module")
@@ -244,23 +250,19 @@ def test_cli_deploy_stdin_and_seed_weights(synth, monkeypatch, capsys):
                                   ["-kp", NGRAM], ["--int8"],
                                   ["--lm-int8"]])
 def test_cli_deploy_unported_flags_error(demo, synth, flag, capsys):
-    """The int8 flags stop with an error that names their ROADMAP item. The
-    host-beam flags, refused until the host beam was ported, now serve the
-    JAX engine's texts for the same flags (``-uts`` and ``-kp`` without a
-    beam search leave greedy as it is)."""
+    """The flags once refused, the host beam's and the int8 ones, now serve
+    the JAX engine's texts for the same flags (``-uts`` and ``-kp`` without
+    a beam search leave greedy as it is, and so does ``--lm-int8`` without
+    the LM-fused search); ``--int8`` calibrates on the first request's
+    batch and prints the one-liner."""
     _, test_dir, pt = synth
     argv = ["-m", pt, "-i", test_dir, "-lang", "hctr-tiny", "-cl", CHARS,
             "-w", "128", "-d", "cpu", *flag]
-    if flag[0] in ("--int8", "--lm-int8"):
-        with pytest.raises(SystemExit) as e:
-            deploy.main(argv)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
-        return
     files = [os.path.join(test_dir, f) for f in sorted(os.listdir(test_dir))]
     method = "beam-search" if "beam-search" in flag else "greedy-search"
     want, _ = _jax_engine(demo[0], method, dtype=jnp.bfloat16, widths=(128,),
-                          beam={}, skip_search="-ss" in flag).infer_files(
-                              files)
+                          beam={}, skip_search="-ss" in flag,
+                          int8="--int8" in flag).infer_files(files)
     assert deploy.main(argv) == want
+    assert ("[int8] calibrated 17 conv sites" in capsys.readouterr().out) \
+        == ("--int8" in flag)

@@ -137,10 +137,12 @@ def test_lm_knobs_reach_the_search(demo):
 
 
 def test_unported_lm_routes_raise(demo):
-    """The int8 LM still raises. The host-beam configurations, which raised
-    until the host beam was ported, now build it (LM proposals alone through
-    the Python decoder and ``LMScorer``, the others native) and serve the
-    JAX engine's texts."""
+    """The host-beam configurations, which raised until the host beam was
+    ported, now build it (LM proposals alone through the Python decoder and
+    ``LMScorer``, the others native) and serve the JAX engine's texts; so
+    does the int8 LM (``lm_int8``), which raised until it was ported: the
+    search's ``CachedLM`` runs its step in int8 and the texts are the JAX
+    int8-LM engine's, with the recognizer in int8 too."""
     variables, files, chars, jax_lm, lm_state = demo
     lm = _torch_lm(chars, lm_state)
     model, _ = get_model_info("hctr-tiny", chars_list_file=CHARS)
@@ -162,10 +164,10 @@ def test_unported_lm_routes_raise(demo):
                             decode_method="beam-search", **BEAM,
                             **jkw).infer_files(files[:2])
         assert engine.infer_files(files[:2])[0] == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(model, sd, CTCCodec(chars), device="cpu",
-                      decode_method="beam-search", lm=lm, use_lm_score=True,
-                      lm_int8=True)
+    engine = _port_engine(demo, lm_int8=True, int8=True)
+    assert engine._lm_beam._clm.quant_int8
+    assert engine.infer_files(files[:2])[0] == _jax_texts(
+        demo, files[:2], lm_int8=True, int8=True)
 
 
 @pytest.fixture(scope="module")
@@ -208,30 +210,24 @@ def test_cli_deploy_lm_route_matches_jax(demo, lm_dir, mode):
     ["-ss"],                                  # skip search without an LM
     ["-utp"], ["-utp", "-tp", "LM"],          # LM proposals alone: host beam
     ["-uts"],                                 # LM scoring without an LM
-    ["-uts", "-tp", "LM", "--lm-int8"]])
+    ["-uts", "-tp", "LM", "--lm-int8", "--lm-f32"]])
 def test_cli_deploy_unported_lm_flags_error(lm_dir, demo, flags, capsys):
-    """``--lm-int8`` stops with an error that names its ROADMAP item. The
-    host-beam flags, refused until the host beam was ported, now serve the
-    JAX engine's texts for the same flags (``-utp`` without an LM serves
-    the plain device beam, as in the JAX engine)."""
+    """The flags once refused, the host beam's and ``--lm-int8``, now serve
+    the JAX engine's texts for the same flags (``-utp`` without an LM serves
+    the plain device beam, as in the JAX engine; the int8 LM runs in f32,
+    as bf16 LM decodes are not bit-comparable between the packages)."""
     d, pt, _ = lm_dir
     argv = ["-lang", "hctr-tiny", "-m", pt, "-i", demo[1][0], "-cl", CHARS,
             "-d", "cpu", "-dm", "beam-search", "-w", "128",
             *[d if f == "LM" else f for f in flags]]
-    if "--lm-int8" in flags:
-        with pytest.raises(SystemExit) as e:
-            deploy.main(argv)
-        assert e.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
-        return
     variables, files, chars, jax_lm, _ = demo
     codec = JaxCodec(chars)
     model = FlaxHCTR(num_classes=codec.num_classes, backbone_channels=64,
                      num_blocks=(1, 1, 1, 1), dtype=jnp.bfloat16)
     kw = dict(skip_search="-ss" in flags, use_lm_score="-uts" in flags,
               use_lm_pred="-utp" in flags,
-              lm=jax_lm if "LM" in flags else None)
+              lm=jax_lm if "LM" in flags else None,
+              lm_int8="--lm-int8" in flags, lm_f32="--lm-f32" in flags)
     want, _ = JaxEngine(model, variables, codec, widths=(128,),
                         decode_method="beam-search", **kw).infer_files(
                             files[:1])

@@ -3,6 +3,7 @@ the JAX package's texts on its test split as the port's reference.
 
     env JAX_PLATFORMS=cpu python tools/convert_to_torch.py
     env JAX_PLATFORMS=cpu python tools/convert_to_torch.py --skip-texts
+    env JAX_PLATFORMS=cpu python tools/convert_to_torch.py --int8
 
 Reads ``demo/hard/checkpoint`` (the trained ``hctr-tiny``) and
 ``demo/hard/lm`` (the trained 128d/3L char LM, orbax ``weights/``) with the
@@ -23,6 +24,14 @@ JAX package, and writes with the port's ``utils.weights`` into
     the three commands of ``demo/hard/RESULTS.md`` at ``-b 8``, each with
     its command line. ``chip_smoke.py`` holds the card's texts against
     them.
+
+``--int8`` writes ``int8.json`` alone, the int8 reference (``texts.json``
+is not regenerated: its ``-utp`` route takes about 10 minutes): the JAX
+``ServingEngine``'s calibration tree on its first batch of 8 (recognizer in
+f32), its int8 texts for the test split on the greedy route and on the
+skip search with the int8 LM (``-ss --lm-int8 --lm-f32``, lp 0.8, lb 0.0),
+and the JAX eval CLI's texts and CER for ``INT8_EVAL_COMMANDS`` (``--int8``,
+recognizer in bf16, ``-b 8``).
 
 Needs the JAX package (JAX, flax, orbax); the port never imports this file.
 """
@@ -70,13 +79,22 @@ EVAL_COMMANDS = {
 }
 
 
+# the int8 eval commands: RESULTS.md's greedy and LM -ss commands with the
+# int8 flags
+INT8_EVAL_COMMANDS = {
+    "greedy": EVAL_COMMANDS["greedy"] + ["--int8"],
+    "lm_ss": EVAL_COMMANDS["lm_ss"] + ["--int8", "--lm-int8"],
+}
+
+
 def eval_argv(name: str, model_file: str, data: str, lm_dir: str,
-              ngram: str = NGRAM, batch: int = EVAL_BATCH) -> list:
-    """The eval CLI's arguments of ``EVAL_COMMANDS[name]``."""
+              ngram: str = NGRAM, batch: int = EVAL_BATCH,
+              commands=EVAL_COMMANDS) -> list:
+    """The eval CLI's arguments of ``commands[name]``."""
     subst = {"LM": lm_dir, "NGRAM": ngram}
     return (["-m", "hctr-tiny", "-f", model_file, "-i", data, "-bm", "-b",
              str(batch), "-tv", "-jw", "2"]
-            + [subst.get(a, a) for a in EVAL_COMMANDS[name]])
+            + [subst.get(a, a) for a in commands[name]])
 
 
 def parse_eval_output(out: str):
@@ -128,10 +146,7 @@ def reference_texts(demo: str, n_lines: int | None = None,
         ServingEngine)
 
     data = os.path.join(demo, "data")
-    test_dir = os.path.join(data, "test")
-    files = sorted(f for f in os.listdir(test_dir)
-                   if f.endswith(".png"))[:n_lines]
-    paths = [os.path.join(test_dir, f) for f in files]
+    files, paths = test_paths(demo, n_lines)
     model, characters = get_model_info("hctr-tiny", data_dir=data,
                                        dtype=jnp.float32)
     codec = CTCCodec(characters)
@@ -165,9 +180,11 @@ def reference_texts(demo: str, n_lines: int | None = None,
 
 
 def reference_eval(demo: str, data: str | None = None,
-                   commands=tuple(EVAL_COMMANDS)) -> dict:
-    """The JAX eval CLI's texts and CER for ``commands`` on the test split
-    of ``data`` (``demo``'s own by default), in bf16 at ``-b 8``."""
+                   commands=tuple(EVAL_COMMANDS),
+                   table=EVAL_COMMANDS) -> dict:
+    """The JAX eval CLI's texts and CER for ``commands`` (keys of
+    ``table``) on the test split of ``data`` (``demo``'s own by default), in
+    bf16 at ``-b 8``."""
     import contextlib
     import io
 
@@ -183,7 +200,8 @@ def reference_eval(demo: str, data: str | None = None,
     for name in commands:
         argv = eval_argv(name, os.path.join(demo, "checkpoint"), data,
                          os.path.join(demo, "lm"),
-                         ngram=os.path.join(demo, "lm", "ngram.hblm"))
+                         ngram=os.path.join(demo, "lm", "ngram.hblm"),
+                         commands=table)
         t0 = time.time()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -191,12 +209,93 @@ def reference_eval(demo: str, data: str | None = None,
         texts, cer = parse_eval_output(buf.getvalue())
         shown = {"LM": "demo/hard/lm", "NGRAM": "demo/hard/lm/ngram.hblm"}
         out[name] = {"command": " ".join(shown.get(a, a)
-                                         for a in EVAL_COMMANDS[name]),
+                                         for a in table[name]),
                      "cer": cer, "texts": texts}
         print(f"eval {name}: CER {cer}, {len(texts)} lines in "
               f"{time.time() - t0:.1f} s", flush=True)
     return {"files": files, "batch": EVAL_BATCH,
             "recognizer_dtype": "bfloat16", **out}
+
+
+def test_paths(demo: str, n_lines: int | None = None) -> tuple:
+    """The test split's file names (sorted) and paths, its first
+    ``n_lines``."""
+    test_dir = os.path.join(demo, "data", "test")
+    files = sorted(f for f in os.listdir(test_dir)
+                   if f.endswith(".png"))[:n_lines]
+    return files, [os.path.join(test_dir, f) for f in files]
+
+
+def first_batch(demo: str):
+    """The JAX engine's first serving batch of the test split (the batch
+    its int8 engine calibrates on), ``(8, 128, W, 1)`` uint8: the first
+    ``BATCH`` lines of the first line's width bucket, in file order."""
+    import numpy as np
+
+    from handwritten_chinese_ocr_samples_tpu.serve.engine import (
+        _pad_fixed_shape, _read_gray)
+    _, paths = test_paths(demo)
+    batch, first = [], None
+    for p in paths:
+        src = _read_gray(p)
+        w = int(128 * src.shape[1] / src.shape[0])
+        bucket = next((b for b in WIDTHS if w <= b), WIDTHS[-1])
+        first = first or bucket
+        if bucket == first:
+            batch.append(_pad_fixed_shape(src, 128, bucket))
+        if len(batch) == BATCH:
+            return np.concatenate(batch)
+    raise ValueError(f"fewer than {BATCH} lines in the first bucket")
+
+
+def reference_int8(demo: str, n_lines: int | None = None) -> dict:
+    """The JAX int8 engine's calibration tree and texts (greedy, and the
+    skip search with the int8 LM), recognizer and LM in f32, batch 8."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from handwritten_chinese_ocr_samples_tpu.core.codec import CTCCodec
+    from handwritten_chinese_ocr_samples_tpu.decode.lm_interface import (
+        build_lm_backend)
+    from handwritten_chinese_ocr_samples_tpu.eval.driver import (
+        load_recognizer_variables)
+    from handwritten_chinese_ocr_samples_tpu.models.registry import (
+        get_model_info)
+    from handwritten_chinese_ocr_samples_tpu.serve.engine import (
+        ServingEngine)
+
+    files, paths = test_paths(demo, n_lines)
+    data = os.path.join(demo, "data")
+    model, characters = get_model_info("hctr-tiny", data_dir=data,
+                                       dtype=jnp.float32)
+    codec = CTCCodec(characters)
+    variables = load_recognizer_variables(os.path.join(demo, "checkpoint"))
+    lm = build_lm_backend(tfm_path=os.path.join(demo, "lm"), use_tfm=True)
+    settings = {
+        "greedy": dict(decode_method="greedy-search"),
+        "ss": dict(decode_method="beam-search", lm=lm, use_lm_pred=True,
+                   use_lm_score=True, skip_search=True, lm_f32=True,
+                   lm_int8=True, **SS),
+    }
+    out = {"files": files, "widths": list(WIDTHS), "batch": BATCH,
+           "recognizer_dtype": "float32",
+           "ss_route": "-dm beam-search -utp -uts -tp lm -ss -lp 0.8 -lb 0.0"
+                       " --lm-f32 --int8 --lm-int8"}
+    trees = []
+    for name, kw in settings.items():
+        t0 = time.time()
+        engine = ServingEngine(model, variables, codec, widths=WIDTHS,
+                               int8=True, **kw)
+        out[name], _ = engine.infer_files_batched(paths, batch_size=BATCH)
+        trees.append(jax.tree.map(lambda a: float(np.float32(a)),
+                                  engine._quant))
+        print(f"int8 {name}: {len(paths)} lines in {time.time() - t0:.1f} s",
+              flush=True)
+    if trees[0] != trees[1]:
+        raise AssertionError("the two engines calibrated differently")
+    out["calibration"] = trees[0]
+    return out
 
 
 def main(argv=None) -> int:
@@ -205,9 +304,19 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=OUT)
     parser.add_argument("--skip-texts", action="store_true",
                         help="convert the weights only")
+    parser.add_argument("--int8", action="store_true",
+                        help="write int8.json alone")
     args = parser.parse_args(argv)
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if args.int8:
+        ref = reference_int8(args.demo)
+        ref["eval"] = reference_eval(args.demo, commands=tuple(
+            INT8_EVAL_COMMANDS), table=INT8_EVAL_COMMANDS)
+        with open(os.path.join(args.out, "int8.json"), "w") as f:
+            json.dump(ref, f, ensure_ascii=False, indent=0)
+        print(f"wrote {os.path.join(args.out, 'int8.json')}")
+        return 0
     convert(args.demo, args.out)
     if not args.skip_texts:
         texts = reference_texts(args.demo)
