@@ -3,6 +3,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --int8
+    python3 chip_smoke.py --export
+    python3 chip_smoke.py --lm
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
@@ -65,11 +68,34 @@ The training phases launch none of K1-K4 (training reaches no TPU kernel):
     same seeds, and the eval CLI's CER on seed 0's checkpoint equal to
     ``1 - acc``.
 
-``--int8`` runs only the build and the int8 phases. ``--kernels`` runs
+Export and the LM tooling (no new kernel; the int8 programs call I1 through
+its custom ops):
+
+  * ``export``: the seeded full-width ``hctr`` (bf16) through
+    ``cli/export.py`` at ``-b 4 -w 512,1024,1600``, then again with
+    ``--int8-calib demo/hard/data/test``, each loaded program's ``(chars,
+    lengths)`` equal to the eager model + greedy on the serve phase's 16
+    lines (33 I1 launches a forward for int8); demo/hard's ``hctr-tiny``
+    in f32 and int8, its 150 lines served from the loaded programs equal
+    to the eager routes (and the float texts to the JAX engine's); the LM
+    bundle's scores against ``LMScorer``'s within ``LM_EXPORT_TOL`` a
+    token; export wall times, file sizes and program ms beside eager ms;
+  * ``lm_train``: demo/hard's LM trained by the port on the card
+    (``tools/make_hard_demo.train_lm``'s recipe, the corpus from this
+    file's copy of the demo's chain sampler), saved, and served on
+    demo/hard ``-ss`` (CER at most ``HARD_LM_CER_TOL``); held-out NLL
+    beside the JAX-trained LM's; 20 timed train steps of ``char-512x6``;
+  * ``ngram_train``: ``cli/lm_train_ngram.py`` on the same corpus, byte
+    for byte the committed ``demo/hard/lm/ngram.arpa`` and ``ngram.hblm``,
+    and ``cli/lm_binarize.py --check``.
+
+``--int8`` runs only the build and the int8 phases; ``--export`` only the
+build and ``export``; ``--lm`` only the build, ``lm_train`` and
+``ngram_train``. ``--kernels`` runs
 only the build and the kernel phases: K1 at the shapes of ``K1_SHAPES``,
 K2-K4 on a seeded frame of the served LM route's shapes and
 ``int8_kernels``, timing the kernels before checking them. ``--train``
-runs only the training phases. None of the three prints the ``ok`` line.
+runs only the training phases. None of these prints the ``ok`` line.
 
 It needs a CUDA card and the repository around it: without either it fails
 before printing any result. TF32 is switched off for convolutions and matrix
@@ -81,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -89,6 +116,9 @@ import time
 import numpy as np
 import torch
 
+from handwritten_chinese_ocr_samples_torch.cli import export as export_cli
+from handwritten_chinese_ocr_samples_torch.cli import (
+    lm_binarize, lm_train_ngram)
 from handwritten_chinese_ocr_samples_torch.core.codec import (
     CTCCodec, load_chars_list)
 from handwritten_chinese_ocr_samples_torch.decode import beam_lm_device as blm
@@ -96,7 +126,12 @@ from handwritten_chinese_ocr_samples_torch.decode.beam_device import (
     beam_search_fused, beam_search_from_topk)
 from handwritten_chinese_ocr_samples_torch.decode.lm_interface import (
     TorchLMBackend)
-from handwritten_chinese_ocr_samples_torch.lm.io import load_lm
+from handwritten_chinese_ocr_samples_torch.lm.infer import LMScorer
+from handwritten_chinese_ocr_samples_torch.lm.io import load_lm, save_lm
+from handwritten_chinese_ocr_samples_torch.lm.model import (
+    CharTransformerLM, get_lm_config)
+from handwritten_chinese_ocr_samples_torch.lm.train import (
+    AdamW, lm_schedule, make_lm_train_step, train_char_lm)
 from handwritten_chinese_ocr_samples_torch.models.registry import get_model_info
 from handwritten_chinese_ocr_samples_torch.ops import _build
 from handwritten_chinese_ocr_samples_torch.ops import cache_gather as k4
@@ -105,13 +140,13 @@ from handwritten_chinese_ocr_samples_torch.ops import logits_lse as k3
 from handwritten_chinese_ocr_samples_torch.ops import peek_attention as k2
 from handwritten_chinese_ocr_samples_torch.ops import topk_logsoftmax as k1
 from handwritten_chinese_ocr_samples_torch.ops.decode import greedy_decode_device
-from handwritten_chinese_ocr_samples_torch.serve import quant
+from handwritten_chinese_ocr_samples_torch.serve import export, quant
 from handwritten_chinese_ocr_samples_torch.serve.daemon import ServingDaemon
 from handwritten_chinese_ocr_samples_torch.serve.engine import ServingEngine
 from handwritten_chinese_ocr_samples_torch.utils.posteriors import (
     synth_peaky_logits)
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
-    quant_flax_to_torch, seeded_state_dict)
+    quant_flax_to_torch, seeded_lm_state_dict, seeded_state_dict)
 
 CHARS_LIST = "demo/full/data/chars_list.txt"
 WIDTHS = (512, 1024, 1600)
@@ -269,9 +304,68 @@ JAX_CLI_ACC = {0: 0.9161, 1: 0.9138, 2: 0.9131}
 # generators and other bf16 roundings move one run that far
 TRAIN_CLI_ACC_TOL = 0.0129
 TRAIN_CLI_TIMEOUT = 600        # seconds for one run of the CLI
+# demo/hard's text source (tools/make_hard_demo.py:79-97, copied below):
+# 200 glyph classes in 100 confusable pairs, a sparse bigram chain over
+# them; its LMs were trained on 8000 lines of default_rng(7) at seed 42
+HARD_GROUPS = 100
+HARD_VOCAB = [chr(0x4E00 + i) for i in range(2 * HARD_GROUPS)]
+HARD_CHAIN_SEED, HARD_LM_SEED, HARD_LM_LINES = 42, 7, 8000
+
+
+def successors(prev_k: int, seed: int):
+    """The 4 allowed successor classes of ``prev_k`` and their
+    probabilities (a copy of ``tools/make_hard_demo.successors``)."""
+    crng = np.random.default_rng(seed * 77_777 + prev_k)
+    groups = crng.choice(HARD_GROUPS, 4, replace=False)
+    members = crng.integers(0, 2, 4)
+    probs = crng.dirichlet(np.full(4, 1.5))
+    return 2 * groups + members, probs
+
+
+def sample_line(rng: np.random.Generator, seed: int,
+                min_len=6, max_len=12) -> str:
+    """One chain line (a copy of ``tools/make_hard_demo.sample_line``)."""
+    L = int(rng.integers(min_len, max_len + 1))
+    k = int(rng.integers(len(HARD_VOCAB)))
+    out = [k]
+    for _ in range(L - 1):
+        succ, p = successors(out[-1], seed)
+        out.append(int(rng.choice(succ, p=p)))
+    return "".join(HARD_VOCAB[k] for k in out)
+
+# export: bundles are written here (under build/, which git ignores) and
+# removed after each phase
+EXPORT_DIR = "build/chip_smoke_export"
+EXPORT_MODEL = "hctr"
+LM_EXPORT_BATCHES, LM_EXPORT_LENGTHS = (1, 10), (32, 64)
+LM_EXPORT_TOL = 1e-5           # exported LM vs LMScorer, a token, f32
+INT8_CALIB = "demo/hard/data/test"
+# lm_train: tools/make_hard_demo.train_lm's recipe; the port-trained LM
+# serves demo/hard -ss -lp 0.8 -lb 0.0 at this CER or better (the
+# JAX-trained LM: 0.0000); the mean NLL of both LMs on held-out lines of
+# another seed
+HARD_LM_RECIPE = dict(epochs=3, batch_size=64, max_len=64, d_model=128,
+                      n_layers=3, warmup_steps=200, log_every=200)
+HARD_LM_CER_TOL = 0.005
+HARD_LM_HELDOUT, HARD_LM_HELDOUT_SEED = 500, 8
+# char-512x6 train steps timed at b64, L 160, bf16 (after LM_WARM_STEPS)
+LM_TIMED_B, LM_TIMED_L, LM_TIMED_STEPS, LM_WARM_STEPS = 64, 160, 20, 3
+
+
+def hard_corpus(n: int = HARD_LM_LINES, seed: int = HARD_LM_SEED) -> list:
+    """The chain lines demo/hard's LMs were trained on
+    (``tools/make_hard_demo.train_lm`` and ``train_ngram``)."""
+    rng = np.random.default_rng(seed)
+    return [sample_line(rng, HARD_CHAIN_SEED) for _ in range(n)]
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line gets the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1548,16 +1642,16 @@ def phase_ss_kernels(dev, recorded: dict) -> dict:
     return out
 
 
-def demo_hard_engines(dev, int8: bool = False):
+def demo_hard_engines(dev, int8: bool = False, lm_dir: str = ""):
     """ServingEngines of the three routes over the committed demo/hard
-    weights: hctr-tiny and the char LM, both in f32. ``int8``: the greedy
-    and ``-ss`` routes with int8 convs and the ``-ss`` LM's step in int8
-    (``--int8 --lm-int8``)."""
+    weights: hctr-tiny and the char LM (``lm_dir``, default the converted
+    one), both in f32. ``int8``: the greedy and ``-ss`` routes with int8
+    convs and the ``-ss`` LM's step in int8 (``--int8 --lm-int8``)."""
     chars_file = os.path.join(DEMO_HARD, "chars_list.txt")
     chars = load_chars_list(chars_file)
     state = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
                        weights_only=True)
-    lm = TorchLMBackend(*load_lm(os.path.join(DEMO_ASSETS, "lm")))
+    lm = TorchLMBackend(*load_lm(lm_dir or os.path.join(DEMO_ASSETS, "lm")))
     routes = {"greedy": dict(decode_method="greedy-search"),
               "beam": dict(decode_method="beam-search"),
               "ss": dict(decode_method="beam-search", lm=lm,
@@ -2854,6 +2948,417 @@ def phase_train_cli(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ export
+def demo_hard_split():
+    """demo/hard's 150 test lines in the committed texts' order: (files,
+    paths, labels, the JAX engine's texts)."""
+    with open(os.path.join(DEMO_ASSETS, "texts.json"), encoding="utf-8") as f:
+        committed = json.load(f)
+    with open(os.path.join(DEMO_HARD, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        labels = dict(line.rstrip("\n").split(",", 1) for line in f
+                      if line.strip())
+    files = committed["files"]
+    paths = [os.path.join(DEMO_HARD, "test", name) for name in files]
+    return files, paths, [labels[name] for name in files], committed
+
+
+def bundle_programs(out_dir: str, meta: dict, dev):
+    """A recognizer bundle's loaded programs by width (one batch size) and
+    its weights on ``dev``."""
+    check(meta["device"] == str(dev), f"bundle traced on {meta['device']}")
+    (b,) = meta["batch_sizes"]
+    fns = {w: export.load_exported(
+        os.path.join(out_dir, f"{meta['tag']}_b{b}_w{w}.pt2"))
+        for w in meta["widths"]}
+    return fns, export.load_weights(os.path.join(out_dir, meta["weights"]),
+                                    dev)
+
+
+def serve_programs(fns, weights, codec, items, batch: int):
+    """Texts of ``[(bucket width, (1, H, W, 1) uint8)]`` from the loaded
+    programs, in input order: FIFO batches of ``batch`` a bucket, the last
+    padded by repetition. Returns the texts and each batch's ``(uint8
+    input, chars, lengths)``."""
+    groups = {}
+    for i, (w, _) in enumerate(items):
+        groups.setdefault(w, []).append(i)
+    texts, batches = [""] * len(items), []
+    dev = next(iter(weights.values())).device
+    with torch.inference_mode():
+        for w, idxs in sorted(groups.items()):
+            for s in range(0, len(idxs), batch):
+                chunk = idxs[s:s + batch]
+                rows = chunk + [chunk[-1]] * (batch - len(chunk))
+                u8 = torch.from_numpy(np.concatenate(
+                    [items[i][1] for i in rows])).to(dev)
+                chars, lengths = fns[w](weights, u8)
+                batches.append((u8, chars, lengths))
+                for i, t in zip(chunk, codec.compact_to_texts(
+                        chars.cpu(), lengths.cpu())):
+                    texts[i] = t
+    return texts, batches
+
+
+def check_eager(engine: ServingEngine, batches, what: str) -> None:
+    """Every program batch's ``(chars, lengths)`` equal to the eager
+    engine's model + ``greedy_decode_device`` on the same input."""
+    with torch.inference_mode():
+        for u8, chars, lengths in batches:
+            want_c, want_l = greedy_decode_device(
+                engine.model((u8.float() - 127.5) / 127.5),
+                unknown_id=engine.codec.unknown_id)
+            check(torch.equal(chars, want_c) and torch.equal(lengths, want_l),
+                  f"{what}: program vs eager greedy differ at width "
+                  f"{u8.shape[2]}")
+
+
+def kernel_time(fn) -> tuple:
+    """One call of ``fn`` (after one warm-up) under torch.profiler: the
+    device time of its operations, summed, and their count."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return sum(ms for _, ms, _ in kernels), sum(n for _, _, n in kernels)
+
+
+def file_sizes(out_dir: str) -> dict:
+    return {f: os.path.getsize(os.path.join(out_dir, f))
+            for f in sorted(os.listdir(out_dir))}
+
+
+def export_timed(argv) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = export_cli.main(argv)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_export(dev, codec, state) -> dict:
+    """The recognizer and the LM through ``cli/export.py`` and
+    ``serve/export.py``, each loaded program against its eager route:
+
+      * the seeded full-width ``hctr`` (bf16) at ``-b 4 -w
+        512,1024,1600``: on the serve phase's 16 lines every batch's
+        ``(chars, lengths)`` equals the eager engine's greedy route; the
+        export wall time a bucket, the files' sizes, and the loaded
+        program's ms beside the eager forward + greedy at b4;
+      * the same with ``--int8-calib demo/hard/data/test``: equal to the
+        eager int8 model on the same calibration, 33 launches of each of
+        I1's entry points a forward, counted by the custom ops;
+      * demo/hard's ``hctr-tiny`` in f32 (``export_model``), float and
+        int8 on the same calibration images: the 150 test lines served
+        from the loaded programs equal the eager routes, the float texts
+        the JAX engine's (CER 0.0829);
+      * demo/hard's LM at (1, 10) x (32, 64): ``ExportedLMScorer.score``
+        within ``LM_EXPORT_TOL`` a token of ``LMScorer.score`` in f32 on
+        the 150 labels and over-long lines.
+
+    Returns I1's launches on the int8 programs' main paths."""
+    out = {}
+    counts = {}
+    images = text_lines(N_REQUESTS, seed=0)
+    for kind in ("bf16", "int8"):
+        out_dir = os.path.join(EXPORT_DIR, f"{EXPORT_MODEL}_{kind}")
+        argv = ["-m", EXPORT_MODEL, "-f", "seed:0", "-o", out_dir, "-w",
+                ",".join(map(str, WIDTHS)), "-b", str(BATCH), "-cl",
+                CHARS_LIST, "--device", str(dev)]
+        if kind == "int8":
+            argv += ["--int8-calib", INT8_CALIB]
+        res, wall = export_timed(argv)
+        meta = res["model"]
+        check(meta["int8"] == (kind == "int8")
+              and meta["compute_dtype"] == "bfloat16",
+              f"export {kind}: meta {meta}")
+        fns, weights = bundle_programs(out_dir, meta, dev)
+        model, _ = get_model_info(EXPORT_MODEL, chars_list_file=CHARS_LIST,
+                                  dtype=torch.bfloat16)
+        engine = ServingEngine(model, state, codec, widths=WIDTHS,
+                               device=dev)
+        if kind == "int8":
+            x = torch.from_numpy(quant.calibration_images(
+                INT8_CALIB, 128, WIDTHS[0])).to(dev)
+            quant.calibrate_for_model(engine.model,
+                                      [(x.float() - 127.5) / 127.5],
+                                      announce=False)
+            reset_i1()        # ---- main path: the int8 programs
+        items = [engine.preprocess_array(a) for a in images]
+        texts, batches = serve_programs(fns, weights, codec, items, BATCH)
+        if kind == "int8":
+            counts["export_int8"] = i1_counts()   # ---- end of main path
+        check_eager(engine, batches, f"export {kind}")
+        times = {}
+        rows = [x for bw, x in items if bw == WIDTHS[-1]]
+        check(bool(rows), "export: no served line in the widest bucket")
+        u8 = torch.from_numpy(np.concatenate((rows * BATCH)[:BATCH]))
+        for w in WIDTHS:
+            xw = u8[:, :, :w].to(dev)
+
+            def program():
+                return fns[w](weights, xw)
+
+            def eager():
+                return greedy_decode_device(
+                    engine.model((xw.float() - 127.5) / 127.5),
+                    unknown_id=codec.unknown_id)
+            with torch.inference_mode():
+                # events around the call; and the device time of its
+                # operations, summed, with their count (device_ms cannot
+                # get ahead of an int8 program: it enqueues more launches
+                # than a stream holds, and the host waits for the card)
+                times[str(w)] = {"program_ms": cuda_ms(program),
+                                 "eager_ms": cuda_ms(eager)}
+                for name, fn in (("program", program), ("eager", eager)):
+                    busy, ops = kernel_time(fn)
+                    times[str(w)].update({f"{name}_device_ms": busy,
+                                          f"{name}_device_ops": ops})
+        if kind == "int8":
+            reset_i1()
+            with torch.inference_mode():
+                fns[WIDTHS[0]](weights, u8[:, :, :WIDTHS[0]].to(dev))
+            per_forward = i1_counts()
+            check(per_forward == {"conv": HCTR_SITES,
+                                  "quantize": HCTR_SITES},
+                  f"export int8: I1 launches a program call {per_forward}")
+            n = HCTR_SITES * len(batches)
+            check(counts["export_int8"] == {"conv": n, "quantize": n},
+                  f"export int8: I1 launches {counts['export_int8']} for "
+                  f"{len(batches)} batches")
+            out[kind + "_i1_launches_per_forward"] = per_forward
+        out[kind] = {"export_s": wall,
+                     "export_s_per_bucket": wall / len(meta["artifacts"]),
+                     "bytes": file_sizes(out_dir), "ms_b4": times,
+                     "texts_nonempty": sum(bool(t) for t in texts)}
+        del fns, weights, engine, model
+        shutil.rmtree(out_dir)
+
+    # demo/hard: hctr-tiny in f32 through export_model, float and int8
+    files, paths, truth, committed = demo_hard_split()
+    chars_file = os.path.join(DEMO_HARD, "chars_list.txt")
+    tiny = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
+                      weights_only=True)
+    batch = committed["batch"]
+    for kind in ("f32", "int8"):
+        engine = demo_hard_engines(dev)["greedy"]
+        amax = None
+        if kind == "int8":
+            x = torch.from_numpy(quant.calibration_images(
+                INT8_CALIB, 128, WIDTHS[0])).to(dev)
+            amax = quant.calibrate_for_model(
+                engine.model, [(x.float() - 127.5) / 127.5], announce=False)
+        model, _ = get_model_info("hctr-tiny", chars_list_file=chars_file)
+        out_dir = os.path.join(EXPORT_DIR, f"hctr-tiny_{kind}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = export.export_model(model, tiny, out_dir, tag="hctr-tiny",
+                                   widths=WIDTHS, batch_sizes=(batch,),
+                                   unknown_id=engine.codec.unknown_id,
+                                   quant=amax, device=dev)
+        wall = time.perf_counter() - t0
+        fns, weights = bundle_programs(out_dir, meta, dev)
+        items = [engine.preprocess_bucketed(p) for p in paths]
+        if kind == "int8":
+            reset_i1()        # ---- main path: demo/hard's int8 programs
+        texts, batches = serve_programs(fns, weights, engine.codec, items,
+                                        batch)
+        if kind == "int8":
+            counts["export_demo_hard_int8"] = i1_counts()  # ---- end
+            n = TINY_SITES * len(batches)
+            check(counts["export_demo_hard_int8"] == {"conv": n,
+                                                      "quantize": n},
+                  f"export demo/hard int8: I1 launches "
+                  f"{counts['export_demo_hard_int8']}")
+        check_eager(engine, batches, f"export demo/hard {kind}")
+        eager, _ = engine.infer_files_batched(paths, batch_size=batch)
+        check(texts == eager, f"export demo/hard {kind}: texts differ from "
+              "the eager engine's")
+        res = {"cer": cer(texts, truth), "export_s": wall,
+               "bytes": file_sizes(out_dir)}
+        if kind == "f32":
+            check(texts == committed["greedy"], "export demo/hard f32: "
+                  "texts differ from the JAX engine's")
+        out[f"demo_hard_{kind}"] = res
+        shutil.rmtree(out_dir)
+
+    # demo/hard's LM
+    out_dir = os.path.join(EXPORT_DIR, "lm")
+    res, wall = export_timed([
+        "-tp", os.path.join(DEMO_ASSETS, "lm"), "-o", out_dir,
+        "--lm-lengths", ",".join(map(str, LM_EXPORT_LENGTHS)),
+        "--lm-batch-sizes", ",".join(map(str, LM_EXPORT_BATCHES)),
+        "--device", str(dev)])
+    scorer = export.ExportedLMScorer(out_dir)
+    live = LMScorer(*load_lm(os.path.join(DEMO_ASSETS, "lm")), device=dev)
+    sents = truth + ["".join(truth[:8])]          # one past every bucket
+    cut = max(LM_EXPORT_LENGTHS) - 2
+    got = scorer.score(sents, char_based=True)
+    want = live.score([s[:cut] for s in sents], char_based=True)
+    n = np.array([min(len(s), cut) for s in sents])
+    err = float((np.abs(got - want) / n).max())
+    check(err <= LM_EXPORT_TOL, f"export LM: {err} a token from LMScorer")
+    check(scorer.next_k_words(truth[:10], 5, char_based=True)
+          == live.next_k_words(truth[:10], 5, char_based=True),
+          "export LM: next_k_words differ from LMScorer's")
+    out["lm"] = {"export_s": wall, "bytes": file_sizes(out_dir),
+                 "sentences": len(sents), "max_abs_err_per_token": err,
+                 "buckets": res["lm"]["artifacts"]}
+    shutil.rmtree(out_dir)
+    emit({"phase": "export", "model": EXPORT_MODEL, "batch": BATCH,
+          "widths": list(WIDTHS), "i1_launches": counts, **out})
+    return counts
+
+
+# ---------------------------------------------------------------- LM tools
+def lm_train_flops(cfg: dict, B: int, L: int) -> float:
+    """Multiply-adds x 2 of one train step of a ``CharTransformerLM`` at
+    ``(B, L)``, from the shapes: per layer the q, k, v and out projections
+    and the two FF products over every token, the scores and the weighted
+    values over the full ``L x L`` square (the port computes it before the
+    mask), the tied head; a step is 3 times the forward."""
+    d, dff, V, n = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], \
+        cfg["n_layers"]
+    tokens = B * L
+    layer = 2.0 * tokens * (4 * d * d + 2 * d * dff) + 4.0 * B * L * L * d
+    return 3 * (n * layer + 2.0 * tokens * d * V)
+
+
+def phase_lm_train(dev) -> dict:
+    """The port trains demo/hard's LM on the card with
+    ``tools/make_hard_demo.train_lm``'s recipe (8000 chain lines of
+    ``default_rng(7)``, 3 epochs, b64, max_len 64, d 128, 3 layers, warm-up
+    200, bf16), saves it with ``save_lm`` and serves demo/hard ``-ss -lp
+    0.8 -lb 0.0`` with it (CER at most ``HARD_LM_CER_TOL``); the mean NLL a
+    token of it and of the JAX-trained LM on 500 held-out chain lines.
+    Then 20 train steps of ``char-512x6`` (vocab 7377) at b64, L 160, bf16:
+    tokens/s, ms a step, peak memory, the share of the bf16 peak. Returns
+    K1-K4's launches on the ``-ss`` main path."""
+    corpus = hard_corpus()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, params, tok = train_char_lm(corpus, "".join(HARD_VOCAB),
+                                       dtype=torch.bfloat16, device=dev,
+                                       **HARD_LM_RECIPE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = HARD_LM_RECIPE["epochs"] * (len(corpus)
+                                        // HARD_LM_RECIPE["batch_size"])
+    lm_dir = os.path.join(EXPORT_DIR, "lm_trained")
+    save_lm(lm_dir, model, params, tok)
+
+    files, paths, truth, committed = demo_hard_split()
+    engine = demo_hard_engines(dev, lm_dir=lm_dir)["ss"]
+    engine.infer_files_batched(paths[:committed["batch"]],
+                               batch_size=committed["batch"])   # warm-up
+    reset_launches()          # ---- main path: -ss with the port's LM
+    texts, lps = engine.infer_files_batched(paths,
+                                            batch_size=committed["batch"])
+    counts = launch_counts()  # ---- end of main path
+    ss_cer = cer(texts, truth)
+    check(ss_cer <= HARD_LM_CER_TOL, f"lm_train: -ss CER {ss_cer} with the "
+          "port-trained LM")
+    check(counts["topk_logsoftmax"] > 0 and counts["lse_rows"] > 0,
+          f"lm_train -ss launches {counts}")
+    held = hard_corpus(HARD_LM_HELDOUT, seed=HARD_LM_HELDOUT_SEED)
+    n_tok = sum(len(s) for s in held)
+    nll = {}
+    for name, spec in (("port", lm_dir),
+                       ("jax", os.path.join(DEMO_ASSETS, "lm"))):
+        scorer = LMScorer(*load_lm(spec), device=dev)
+        nll[name] = float(-scorer.score(held, char_based=True).sum() / n_tok)
+    shutil.rmtree(lm_dir)
+    hard = {"lines": len(corpus), "steps": steps, "train_s": train_s,
+            "ms_per_step": 1e3 * train_s / steps, "ss_cer": ss_cer,
+            "ss_cer_jax_lm": cer(committed["ss"], truth),
+            "ss_lines_per_s": lps,
+            "ss_lines_differing_from_jax_lm": sum(
+                a != b for a, b in zip(texts, committed["ss"])),
+            "heldout_lines": len(held), "heldout_nll_per_token": nll}
+
+    # char-512x6: timed steps
+    cfg = get_lm_config("char-512x6")
+    B, L = LM_TIMED_B, LM_TIMED_L
+    big = CharTransformerLM(**cfg, dtype=torch.bfloat16).to(dev)
+    weights = {k: v.to(dev) for k, v in
+               seeded_lm_state_dict(cfg, LM_SEED).items()}
+    tx = AdamW(lm_schedule(5e-4, 4000, 100_000))
+    opt = tx.init(list(weights.values()))
+    step = make_lm_train_step(big, tx)
+    rng = np.random.default_rng(0)
+    toks = np.full((B, L), 2, np.int64)                  # </s> fill
+    toks[:, 0] = 0                                       # <s>
+    toks[:, 1:L - 1] = rng.integers(4, cfg["vocab_size"], (B, L - 2))
+    toks = torch.from_numpy(toks).to(dev)
+    lengths = torch.full((B,), L - 2, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    for _ in range(LM_WARM_STEPS):
+        weights, opt, loss = step(weights, opt, toks, lengths, gen)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    for _ in range(LM_TIMED_STEPS):
+        weights, opt, loss = step(weights, opt, toks, lengths, gen)
+        losses.append(loss)
+    events[1].record()
+    torch.cuda.synchronize()
+    ms = events[0].elapsed_time(events[1]) / LM_TIMED_STEPS
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"char-512x6 losses {losses}")
+    flops = lm_train_flops(cfg, B, L)
+    big_res = {"config": "char-512x6", "batch": B, "length": L,
+               "dtype": "bfloat16", "steps": LM_TIMED_STEPS,
+               "ms_per_step": ms, "tokens_per_s": B * L / ms * 1e3,
+               "tflop_per_step": flops / 1e12,
+               "bf16_peak_share": flops / (ms * 1e-3) / BF16_OPS_PER_S,
+               "peak_mem_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+               "loss_first_last": [losses[0], losses[-1]]}
+    emit({"phase": "lm_train", "demo_hard": hard, "launches_ss": counts,
+          "char_512x6": big_res})
+    return counts
+
+
+def phase_ngram_train() -> None:
+    """``cli/lm_train_ngram.py`` on the regenerated demo/hard corpus (order
+    3, the demo's vocabulary, ``--hblm``): both files byte-equal to the
+    committed ``demo/hard/lm/ngram.arpa`` and ``ngram.hblm``; then
+    ``cli/lm_binarize.py --check``."""
+    out_dir = os.path.join(EXPORT_DIR, "ngram")
+    os.makedirs(out_dir, exist_ok=True)
+    corpus, chars = (os.path.join(out_dir, f)
+                     for f in ("corpus.txt", "chars_list.txt"))
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.writelines(" ".join(line) + "\n" for line in hard_corpus())
+    with open(chars, "w", encoding="utf-8") as f:
+        f.write("\n".join(HARD_VOCAB) + "\n")
+    arpa, hblm = (os.path.join(out_dir, f)
+                  for f in ("ngram.arpa", "ngram.hblm"))
+    t0 = time.perf_counter()
+    rc = lm_train_ngram.main([corpus, arpa, "-o", "3", "--chars-list", chars,
+                              "--hblm", hblm])
+    train_s = time.perf_counter() - t0
+    check(rc == 0, f"lm_train_ngram exited {rc}")
+    equal = {}
+    for name, path in (("ngram.arpa", arpa), ("ngram.hblm", hblm)):
+        with open(path, "rb") as a, open(os.path.join(
+                os.path.dirname(NGRAM_HARD), name), "rb") as b:
+            equal[name] = a.read() == b.read()
+    check(all(equal.values()), f"ngram_train: not byte-equal {equal}")
+    rc = lm_binarize.main([arpa, os.path.join(out_dir, "check.hblm"),
+                           "--check"])
+    check(rc == 0, f"lm_binarize --check exited {rc}")
+    emit({"phase": "ngram_train", "order": 3, "lines": HARD_LM_LINES,
+          "train_s": train_s, "byte_equal": equal,
+          "bytes": {n: os.path.getsize(os.path.join(out_dir, n))
+                    for n in ("ngram.arpa", "ngram.hblm")}})
+    shutil.rmtree(out_dir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
@@ -2886,6 +3391,14 @@ def main() -> int:
         phase_demo_hard_int8(dev)
         phase_eval_int8(dev)
         return 0
+    if "--export" in sys.argv[1:]:   # the export phase alone
+        _, codec, state = recognizer()
+        phase_export(dev, codec, state)
+        return 0
+    if "--lm" in sys.argv[1:]:       # the LM tooling phases alone
+        phase_lm_train(dev)
+        phase_ngram_train()
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 and I1 alone, times first
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -2912,9 +3425,12 @@ def main() -> int:
     phase_demo_hard_host(dev)
     paths["eval_lm_ss"], eval_int8 = phase_eval_demo_hard(dev)
     int8_paths.update(eval_int8)
+    int8_paths.update(phase_export(dev, codec, state))
     phase_train_parity(dev)
     train = phase_train_full(dev)
     phase_train_cli(dev)
+    paths["lm_train_ss"] = phase_lm_train(dev)
+    phase_ngram_train()
     # the kernels' launches on the skip route's main paths
     skip = {name: sum(c[name] for c in paths.values())
             for name in launch_counts()}

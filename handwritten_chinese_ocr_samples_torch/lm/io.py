@@ -9,6 +9,9 @@
   * a directory holding ``config.json``, ``dict.txt`` and ``weights.pt``, a
     torch state dict (``utils.weights.lm_flax_to_torch`` of the JAX
     package's orbax ``weights/`` tree, converted where JAX is installed).
+
+``save_lm`` writes such a directory (``config.json``, ``dict.txt``,
+``weights.pt``) from a model, its state dict and its tokenizer.
 """
 
 from __future__ import annotations
@@ -21,6 +24,19 @@ import torch
 
 from .model import CharTransformerLM, get_lm_config
 from .tokenizer import Tokenizer
+
+
+def save_lm(out_dir: str, model: CharTransformerLM,
+            state: Dict[str, torch.Tensor], tokenizer: Tokenizer) -> None:
+    """Write ``out_dir/{config.json, dict.txt, weights.pt}``: the model's
+    configuration (the JAX ``save_lm``'s keys), the dictionary and the
+    state dict in f32 on the CPU."""
+    os.makedirs(out_dir, exist_ok=True)
+    tokenizer.save_dict(os.path.join(out_dir, "dict.txt"))
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(model.config(), f, indent=2)
+    torch.save({k: v.detach().float().cpu() for k, v in state.items()},
+               os.path.join(out_dir, "weights.pt"))
 
 
 def load_lm(spec: str, chars_list: Optional[str] = None

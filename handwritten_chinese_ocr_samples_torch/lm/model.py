@@ -12,12 +12,22 @@ by default. Module and parameter names follow the flax tree, so
   * LayerNorms use eps 1e-6 with f32 statistics, as flax does.
 
 ``dtype`` is the compute dtype: parameters stay f32 and are cast at use, and
-the logits come out f32. Only inference is ported (dropout is a no-op).
+the logits come out f32.
+
+Train mode (``model.train()`` with ``dropout > 0``) runs flax's five dropout
+sites, each ``keep / (1 - rate)`` with ``keep ~ Bernoulli(1 - rate)`` drawn
+from the ``generator`` passed to ``forward``: after the embedding plus
+position, on the attention weights (one ``(1, 1, Lq, Lk)`` mask shared by
+the batch and the heads, as flax's ``broadcast_dropout`` has it), after
+attention, after ``relu(ff1)`` and after ``ff2``. The masks differ from
+JAX's (no torch generator reproduces ``jax.random``). The eval forward has
+no dropout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +43,31 @@ _CONFIGS = {
                    "n_heads": 8, "d_ff": 2048, "max_len": 160,
                    "dropout": 0.1, "tie_embeddings": True},
 }
+
+
+class Dropout:
+    """The dropout of one forward: off without a generator, else flax's
+    with ``keep ~ Bernoulli(1 - rate)`` drawn from ``generator`` on the
+    activation's device."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator]):
+        self.rate, self.generator = rate, generator
+
+    def __call__(self, x: torch.Tensor, broadcast: bool = False
+                 ) -> torch.Tensor:
+        """``nn.Dropout``'s ``where(keep, x / (1 - rate), 0)``; with
+        ``broadcast`` the attention weights' ``x * keep / (1 - rate)``, one
+        ``(1, 1, Lq, Lk)`` mask for every batch row and head."""
+        if self.generator is None:
+            return x
+        shape = (1, 1, *x.shape[-2:]) if broadcast else x.shape
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) < 1 - self.rate
+        keep_prob = torch.tensor(1 - self.rate, dtype=x.dtype,
+                                 device=x.device)
+        if broadcast:
+            return x * (keep.to(x.dtype) / keep_prob)
+        return torch.where(keep, x / keep_prob, 0)
 
 
 def get_lm_config(tag: str) -> dict:
@@ -78,7 +113,7 @@ class _Attention(nn.Module):
         self.value = nn.Linear(d, d)
         self.out = nn.Linear(d, d)
 
-    def forward(self, x, causal):
+    def forward(self, x, causal, drop: Dropout):
         B, L, d = x.shape
         H = self.n_heads
         Dh = d // H
@@ -88,7 +123,7 @@ class _Attention(nn.Module):
         q = q / math.sqrt(Dh)
         s = torch.einsum("bqhd,bkhd->bhqk", q, k)
         s = s.masked_fill(~causal, torch.finfo(s.dtype).min)
-        w = torch.softmax(s, dim=-1)
+        w = drop(torch.softmax(s, dim=-1), broadcast=True)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, d)
         return _linear(o, self.out)
 
@@ -102,10 +137,10 @@ class _Block(nn.Module):
         self.ff1 = nn.Linear(d, d_ff)
         self.ff2 = nn.Linear(d_ff, d)
 
-    def forward(self, x, causal):
-        x = x + self.attn(self.ln1(x), causal)
-        h = F.relu(_linear(self.ln2(x), self.ff1))
-        return x + _linear(h, self.ff2)
+    def forward(self, x, causal, drop: Dropout):
+        x = x + drop(self.attn(self.ln1(x), causal, drop))
+        h = drop(F.relu(_linear(self.ln2(x), self.ff1)))
+        return x + drop(_linear(h, self.ff2))
 
 
 class CharTransformerLM(nn.Module):
@@ -141,15 +176,23 @@ class CharTransformerLM(nn.Module):
                 "dropout": self.dropout,
                 "tie_embeddings": self.tie_embeddings}
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the train-mode dropout masks; train mode
+        with ``dropout > 0`` needs one."""
         B, L = tokens.shape
         dt = self.dtype
+        train = self.training and self.dropout > 0
+        if train and generator is None:
+            raise ValueError("train-mode dropout needs a generator")
+        drop = Dropout(self.dropout, generator if train else None)
         scale = torch.tensor(self.d_model ** 0.5, dtype=dt)
         x = self.embed.weight.to(dt)[tokens] * scale + self.pos_embed[:L].to(dt)
+        x = drop(x)
         causal = torch.ones(L, L, dtype=torch.bool,
                             device=tokens.device).tril()
         for i in range(self.n_layers):
-            x = getattr(self, f"layer{i}")(x, causal)
+            x = getattr(self, f"layer{i}")(x, causal, drop)
         x = self.ln_f(x)
         head = (self.embed.weight if self.tie_embeddings
                 else self.lm_head.weight)

@@ -19,6 +19,12 @@ The scheme, as the JAX package has it:
     ``acc * (s_x * s_w)``); the LM passes ``alpha = s_x`` and ``scale =
     s_w`` (JAX's ``(acc * s_x) * s_w``).
 
+Both entry points are PyTorch custom ops, ``hctr::int8_quantize`` and
+``hctr::int8_conv`` (registered when this module is imported): the CPU
+kernel of each is its plain version, the CUDA kernel launches I1 through
+``ctypes``, and the fake kernel gives the output's shape, so
+``torch.export`` traces an int8 forward into a program that calls I1.
+
 Layouts: activations quantize from NCHW (or ``(M, K)`` rows) into NHWC s8;
 weights are ``(N, Kp)`` s8, K ordered ``(dy, dx, c)`` and zero-padded to
 ``Kp``, a multiple of 32 (``pack_weight``). Scales live on the device
@@ -90,18 +96,28 @@ def quantize(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """``clip(round(x / s_x), -127, 127)`` as s8: ``(B, C, H, W)`` in the
     compute dtype (f32 or bf16) -> ``(B, H, W, C)``, ``(M, K)`` ->
     ``(M, K)``. ``s_x`` is one f32 element on ``x``'s device. A CUDA tensor
-    goes through I1 (or raises), a CPU tensor through the plain version."""
+    goes through I1 (or raises), a CPU tensor through the plain version,
+    both as the custom op ``hctr::int8_quantize``."""
     if x.dim() not in (2, 4):
         raise ValueError(f"expected (B, C, H, W) or (M, K), got "
                          f"{tuple(x.shape)}")
     if s_x.numel() != 1 or s_x.dtype != torch.float32:
         raise TypeError("s_x must be one f32 element")
-    if x.device.type == "cpu":
-        return quantize_plain(x, s_x)
-    if x.device.type != "cuda" or s_x.device != x.device:
-        raise ValueError(f"unsupported devices {x.device} / {s_x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
+    return torch.ops.hctr.int8_quantize(x, s_x)
+
+
+@torch.library.custom_op("hctr::int8_quantize", mutates_args=(),
+                         device_types="cpu")
+def _quantize_op(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    return quantize_plain(x, s_x)
+
+
+@_quantize_op.register_kernel("cuda")
+def _quantize_cuda(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    if s_x.device != x.device:
+        raise ValueError(f"unsupported devices {x.device} / {s_x.device}")
     x = x.contiguous()
     if x.dim() == 4:
         B, C, H, W = x.shape
@@ -123,6 +139,12 @@ def quantize(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     global quantize_launches
     quantize_launches += 1
     return q
+
+
+@_quantize_op.register_fake
+def _quantize_fake(x, s_x):
+    shape = (x.shape[0], *x.shape[2:], x.shape[1]) if x.dim() == 4 else x.shape
+    return x.new_empty(shape, dtype=torch.int8)
 
 
 def _dequantize(acc, alpha, scale, bias, out_dtype):
@@ -161,7 +183,7 @@ def conv_int8(xq, wq, alpha, scale, bias, kh: int, kw: int,
     ``wq (N, Kp)`` s8 from ``pack_weight``; ``alpha`` one f32 element;
     ``scale``, ``bias`` (or None) ``(N,)`` f32; (kh, kw) is (3, 3) or
     (1, 1). A CUDA tensor goes through I1 (or raises), a CPU tensor through
-    the plain version."""
+    the plain version, both as the custom op ``hctr::int8_conv``."""
     if (kh, kw) not in ((3, 3), (1, 1)):
         raise ValueError(f"kernel ({kh}, {kw}): I1 takes (3, 3) and (1, 1)")
     gemm = xq.dim() == 2
@@ -182,16 +204,30 @@ def conv_int8(xq, wq, alpha, scale, bias, kh: int, kw: int,
         raise TypeError("alpha (1,), scale and bias (N,) must be f32")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be f32 or bf16, got {out_dtype}")
-    if xq.device.type == "cpu":
-        return conv_int8_plain(xq, wq, alpha, scale, bias, kh, kw, out_dtype)
+    return torch.ops.hctr.int8_conv(xq, wq, alpha, scale, bias, kh, kw,
+                                    out_dtype)
+
+
+@torch.library.custom_op("hctr::int8_conv", mutates_args=(),
+                         device_types="cpu")
+def _conv_op(xq: torch.Tensor, wq: torch.Tensor, alpha: torch.Tensor,
+             scale: torch.Tensor, bias: Optional[torch.Tensor], kh: int,
+             kw: int, out_dtype: torch.dtype) -> torch.Tensor:
+    return conv_int8_plain(xq, wq, alpha, scale, bias, kh, kw, out_dtype)
+
+
+@_conv_op.register_kernel("cuda")
+def _conv_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype):
     tensors = (xq, wq, alpha, scale) + (() if bias is None else (bias,))
-    if xq.device.type != "cuda" or any(t.device != xq.device
-                                       for t in tensors):
+    if any(t.device != xq.device for t in tensors):
         raise ValueError("every operand must be on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all operands must be contiguous")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
+    gemm = xq.dim() == 2
+    cin = xq.shape[-1]
+    N, Kp = wq.shape
     B, H, W = (xq.shape[0], 1, 1) if gemm else xq.shape[:3]
     out = torch.empty((B, N) if gemm else (B, N, H, W), dtype=out_dtype,
                       device=xq.device)
@@ -211,6 +247,14 @@ def conv_int8(xq, wq, alpha, scale, bias, kh: int, kw: int,
     return out
 
 
+@_conv_op.register_fake
+def _conv_fake(xq, wq, alpha, scale, bias, kh, kw, out_dtype):
+    N = wq.shape[0]
+    shape = (xq.shape[0], N) if xq.dim() == 2 else (
+        xq.shape[0], N, *xq.shape[1:3])
+    return xq.new_empty(shape, dtype=out_dtype)
+
+
 class QuantConv:
     """The int8 state of one conv site, from its f32 weight ``(N, Cin, kh,
     kw)``, its bias (or None) and the calibrated absmax of its input:
@@ -226,7 +270,8 @@ class QuantConv:
         self.w_q = pack_weight(w_q.permute(0, 2, 3, 1).reshape(N, -1))
         self.s_w = s_w.reshape(N)
         dev = weight.device
-        self.amax = torch.tensor([amax], dtype=torch.float32, device=dev)
+        # a fill, not a copy from the host: a traced program runs it each call
+        self.amax = torch.full((1,), amax, dtype=torch.float32, device=dev)
         self.s_x = scale_of(self.amax)
         self.scale = self.s_x * self.s_w
         self.alpha = torch.ones(1, dtype=torch.float32, device=dev)

@@ -20,11 +20,28 @@ the JAX package's nested tree the same keys.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from ..models.hctr import Conv
+
+
+def calibration_images(folder: str, height: int, width: int,
+                       n: int = 16) -> np.ndarray:
+    """The first ``n`` line images of ``folder``, by file name, padded to
+    ``width``: ``(n, height, width, 1)`` uint8. This is the calibration
+    batch of ``cli/export.py --int8-calib``, as the JAX CLI reads it."""
+    from .engine import preprocess_fixed_shape
+    files = sorted(f for f in os.listdir(folder)
+                   if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")))
+    if not files:
+        raise ValueError(f"no images in {folder}")
+    return np.concatenate([
+        preprocess_fixed_shape(os.path.join(folder, f), height, width)
+        for f in files[:n]], axis=0)
 
 
 def conv_sites(model: torch.nn.Module) -> Dict[str, Conv]:

@@ -22,6 +22,11 @@ LM (``lm/model.CharTransformerLM``): flax attention kernels ``(d, H, Dh)``
 become ``nn.Linear`` weights ``(H*Dh, d)``, the output kernel ``(H, Dh, d)``
 becomes ``(d, H*Dh)``, and ``embed/embedding`` ``(V, d)`` is the tied head.
 
+``normalize_serving_dtype`` is the serving dtype contract (the JAX
+package's ``utils/ckpt_io.normalize_serving_dtype``): floating weights are
+f32 whatever they were stored in, and the model's compute dtype alone sets
+the compute.
+
 ``quant_flax_to_torch`` flattens the JAX package's nested int8 calibration
 tree (one input absmax a conv site) into the port's keys by module path.
 """
@@ -191,3 +196,12 @@ def quant_flax_to_torch(tree: Mapping) -> Dict[str, float]:
     absmax as the float of its f32 value."""
     return {".".join(path): float(np.float32(leaf))
             for path, leaf in _walk(tree)}
+
+
+def normalize_serving_dtype(state: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, torch.Tensor]:
+    """Every floating tensor of ``state`` as f32 (bf16 storage included),
+    every other tensor as it is; a new dict, the tensors on their
+    devices."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in state.items()}
