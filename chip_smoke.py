@@ -24,18 +24,22 @@ demo/hard's three commands of ``demo/hard/RESULTS.md``, then trains
 out.
 
 int8 serving (kernel I1, ``csrc/int8_conv.cu``: the quantize and the s8 x s8
--> s32 implicit-GEMM conv entry points):
+-> s32 implicit-GEMM conv entry points; the conv on a TMA-fed ``wgmma``
+kernel where Cin is a multiple of 64, else on an ``mma.sync`` kernel):
 
   * ``int8_kernels``: I1 timed at the five heaviest site shapes of the
-    full-width forward at b4 w1600 beside its bound, its plain version,
-    the library route (im2col + ``torch._int_mm``) and the site's bf16
-    cuDNN convolution, then held bit for bit against its plain version at
-    every distinct site shape of ``hctr`` and ``hctr-tiny``, the LM's
-    GEMM shapes and edge cases;
+    full-width forward at b4 w1600, the conv on both kernels beside its
+    bound, its plain version, the library route (im2col +
+    ``torch._int_mm``) and the site's bf16 cuDNN convolution, the
+    quantize beside its plain version and its bytes bound; then held bit
+    for bit against its plain versions (the conv on both kernels where the
+    shape takes ``wgmma``) at every distinct site shape of ``hctr`` and
+    ``hctr-tiny``, the LM's GEMM shapes and edge cases;
   * ``serve_int8``: the seeded full-width ``hctr`` through
     ``ServingDaemon`` with ``int8=True`` (greedy, the ``serve`` lines),
     beside the bf16 engine: lines/s, forward ms at each bucket, peak
-    memory, 33 sites and 33 launches a forward;
+    memory, 33 sites and a forward's launches (33 quantize; 32 convs on
+    ``wgmma``, 1 on ``mma.sync``);
   * ``demo_hard_int8``: demo/hard's 150 lines in f32 on the greedy and the
     ``-ss --lm-int8`` routes, on JAX's calibration (``int8.json``: the
     JAX int8 engine's texts, near-ties reported) and on the port's own
@@ -233,6 +237,9 @@ EVAL_K2_DEPTH = 8
 # that some values clip
 INT8_OPS_PER_S = 1979e12       # H100 SXM data sheet, dense int8 tensor cores
 HCTR_SITES, TINY_SITES = 33, 17
+# of which on I1's wgmma route (Cin a multiple of 64): all but conv0_1 of
+# hctr; hctr-tiny's five 64-channel sites
+HCTR_WGMMA, TINY_WGMMA = 32, 5
 INT8_TIMED = 5
 INT8_AMAX_SHARE = 0.8
 # seeded full-width hctr: int8 vs bf16 logits within this share of the
@@ -2076,20 +2083,33 @@ def i1_site(dev, g, shape, cout: int, k: int, dtype=torch.bfloat16,
     return x, ic.QuantConv(w, b, float(x.abs().max()) * amax_share)
 
 
-def compare_i1(x, site) -> float:
+def compare_i1(x, site) -> tuple:
     """I1 (quantize, then conv) against its plain versions on the same card
-    tensors: both bit for bit. Returns the largest |difference| (0)."""
+    tensors: both bit for bit, the conv on the kernel its shape takes (the
+    route's launch count moves by one) and, where that is ``wgmma``, on the
+    ``mma.sync`` kernel too. Returns the largest |difference| of the conv
+    and of the quantize (0 each) and the route."""
     q, qp = ic.quantize(x, site.s_x), ic.quantize_plain(x, site.s_x)
-    y = ic.conv_int8(q, site.w_q, site.alpha, site.scale, site.bias,
-                     site.kh, site.kw, x.dtype)
-    yp = ic.conv_int8_plain(qp, site.w_q, site.alpha, site.scale, site.bias,
-                            site.kh, site.kw, x.dtype)
+    args = (site.w_q, site.alpha, site.scale, site.bias, site.kh, site.kw,
+            x.dtype)
+    route = ic.conv_route(q.shape, site.kh, site.kw)
+    before = dict(ic.launches_by_route)
+    y = ic.conv_int8(q, *args)
+    check(ic.launches_by_route[route] == before[route] + 1,
+          f"I1 conv at {tuple(q.shape)}: not one {route} launch")
+    yp = ic.conv_int8_plain(qp, *args)
+    outs = [y] + ([ic.conv_int8_cuda(q, *args, route="mma")]
+                  if route == "wgmma" else [])
     torch.cuda.synchronize()
-    what = (tuple(x.shape), site.w_q.shape[0], site.kh, str(x.dtype))
+    what = (tuple(x.shape), site.w_q.shape[0], site.kh, str(x.dtype), route)
     check(torch.equal(q, qp), f"I1 quantize differs at {what}")
-    check(torch.equal(y, yp), f"I1 conv differs at {what}: "
-          f"{(y.float() - yp.float()).abs().max().item()}")
-    return (y.float() - yp.float()).abs().max().item()
+    q_err = (q.int() - qp.int()).abs().max().item()
+    err = 0.0
+    for got, kernel in zip(outs, (route, "mma")):
+        err = max(err, (got.float() - yp.float()).abs().max().item())
+        check(torch.equal(got, yp), f"I1 conv ({kernel}) differs at {what}: "
+              f"{err}")
+    return err, q_err, route
 
 
 def compare_i1_gemm(dev, g, M: int, K: int, N: int) -> float:
@@ -2138,31 +2158,86 @@ def i1_library(q: torch.Tensor, site):
     return run
 
 
+def quantize_bound(shape, dtype=torch.bfloat16):
+    """(bound ms, bound by) of I1's quantize: the compute-dtype activation
+    read once and one s8 byte an element written; it does no product."""
+    n = float(np.prod(shape))
+    return bound_ms(n * (torch.finfo(dtype).bits // 8 + 1), 0.0,
+                    INT8_OPS_PER_S)
+
+
+def i1_site_time(x, site, count: int) -> dict:
+    """I1 on ``i1_site``'s activation and site (``count`` sites of its shape
+    run a forward), timed by ``device_ms``: the conv on the kernel its shape
+    takes beside its bound, and the quantize beside its bytes bound."""
+    shape, cout, k = tuple(x.shape), site.w_q.shape[0], site.kh
+    q = ic.quantize(x, site.s_x)
+    args = (q, site.w_q, site.alpha, site.scale, site.bias, k, k,
+            torch.bfloat16)
+    bms, by = i1_bound(shape, cout, k)
+    qbms, qby = quantize_bound(shape)
+    out = {"shape": list(shape), "cout": cout, "k": k, "sites": count,
+           "route": ic.conv_route(q.shape, k, k),
+           "ms": device_ms(lambda: ic.conv_int8(*args)),
+           "bound_ms": bms, "bound_by": by,
+           "quantize_ms": device_ms(lambda: ic.quantize(x, site.s_x)),
+           "quantize_bound_ms": qbms, "quantize_bound_by": qby}
+    out["share_of_bound"] = bms / out["ms"]
+    out["quantize_share_of_bound"] = qbms / out["quantize_ms"]
+    return out
+
+
 def i1_time(dev, g, shape, cout: int, k: int, count: int) -> dict:
-    """I1's conv at one site shape timed by ``device_ms`` beside its plain
-    version, its bound, the library route (im2col + ``_int_mm``) and the
+    """``i1_site_time``, and beside it the conv on the ``mma.sync`` kernel,
+    its plain version, the library route (im2col + ``_int_mm``) and the
     bf16 cuDNN convolution of the same site (the float route's own), and
-    the quantize entry point's time; ``count`` sites of this shape run a
-    forward."""
+    the quantize's plain version."""
     x, site = i1_site(dev, g, shape, cout, k)
+    out = i1_site_time(x, site, count)
     q = ic.quantize(x, site.s_x)
     args = (q, site.w_q, site.alpha, site.scale, site.bias, k, k,
             torch.bfloat16)
     lib = i1_library(q, site)
     wb = torch.randn((cout, shape[1], k, k), device=dev,
                      generator=g).to(torch.bfloat16)
-    bms, by = i1_bound(shape, cout, k)
-    out = {"shape": list(shape), "cout": cout, "k": k, "sites": count,
-           "ms": device_ms(lambda: ic.conv_int8(*args)),
-           "quantize_ms": device_ms(lambda: ic.quantize(x, site.s_x)),
-           "plain_ms": device_ms(lambda: ic.conv_int8_plain(*args)),
-           "library_ms": device_ms(lib),
-           "bf16_conv_ms": device_ms(lambda: torch.nn.functional.conv2d(
-               x, wb, padding=k // 2)),
-           "bound_ms": bms, "bound_by": by}
+    out.update(
+        mma_ms=device_ms(lambda: ic.conv_int8_cuda(*args, route="mma")),
+        plain_ms=device_ms(lambda: ic.conv_int8_plain(*args)),
+        library_ms=device_ms(lib),
+        bf16_conv_ms=device_ms(lambda: torch.nn.functional.conv2d(
+            x, wb, padding=k // 2)),
+        quantize_plain_ms=device_ms(lambda: ic.quantize_plain(x, site.s_x)))
     out["library_equal"] = bool(torch.equal(lib(), ic.conv_int8(*args)))
-    out["tops"] = i1_ops(shape, cout, k) / out["ms"] / 1e9
+    ops = i1_ops(shape, cout, k)
+    out["tops"] = ops / out["ms"] / 1e9
+    out["mma_tops"] = ops / out["mma_ms"] / 1e9
     return out
+
+
+def i1_host_us(dev, calls: int = 2000) -> dict:
+    """Host µs a call of I1's wrappers (quantize, conv, one ``QuantConv``
+    site) and of a PyTorch add, in a loop at a tiny shape, where the card
+    waits for the host."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, site = i1_site(dev, g, (1, 64, 4, 16), 64, 3)
+    q = ic.quantize(x, site.s_x)
+    args = (q, site.w_q, site.alpha, site.scale, site.bias, 3, 3,
+            torch.bfloat16)
+
+    def per_call(fn) -> float:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+    with torch.inference_mode():
+        return {"quantize": per_call(lambda: ic.quantize(x, site.s_x)),
+                "conv_int8": per_call(lambda: ic.conv_int8(*args)),
+                "site": per_call(lambda: site(x)),
+                "torch_add": per_call(lambda: x + x)}
 
 
 def int8_site_shapes(dev) -> tuple:
@@ -2185,38 +2260,62 @@ def int8_site_shapes(dev) -> tuple:
 
 
 def phase_int8_kernels(dev) -> dict:
-    """I1 timed at the five site shapes of the full-width forward that
-    weigh most (operations times sites), then held against its plain
-    version bit for bit (quantize and conv) at every distinct site shape
-    of full ``hctr`` (b4 w1600) and ``hctr-tiny`` (b4 w512), at the LM's
-    GEMM shapes, and on edge cases. Returns the timed shapes, heaviest
-    first, and the largest error."""
+    """I1 timed at every distinct site shape of the full-width forward, in
+    full (both conv kernels, plain, library, cuDNN) at the five that weigh
+    most (operations times sites), and the host's cost of a call; then held
+    against its plain version bit for bit (quantize and conv, on the
+    ``wgmma`` and the ``mma.sync`` kernel where the shape takes ``wgmma``)
+    at every distinct site shape of full ``hctr`` (b4 w1600) and
+    ``hctr-tiny`` (b4 w512), at the LM's GEMM shapes, and on edge cases.
+    Returns the timings (``timed`` heaviest first) and the largest error."""
     full, tiny = int8_site_shapes(dev)
     check(sum(full.values()) == HCTR_SITES
           and sum(tiny.values()) == TINY_SITES,
           f"conv sites: {sum(full.values())} and {sum(tiny.values())}")
+    for sites, want in ((full, HCTR_WGMMA), (tiny, TINY_WGMMA)):
+        on_wgmma = sum(n for (shape, _, k), n in sites.items()
+                       if ic.conv_route((shape[0], *shape[2:], shape[1]), k,
+                                        k) == "wgmma")
+        check(on_wgmma == want, f"{on_wgmma} sites on the wgmma route, "
+              f"not {want}")
     g = torch.Generator(device=dev).manual_seed(8)
     heavy = sorted(full, key=lambda s: -i1_ops(*s) * full[s])[:INT8_TIMED]
     times = [i1_time(dev, g, *s, full[s]) for s in heavy]
-    errs, checked = [], []
+    by_site = [i1_site_time(*i1_site(dev, g, *s), full[s])
+               for s in sorted(full, key=lambda s: -i1_ops(*s))]
+    errs, q_errs, checked = [], [], []
     for shape, cout, k in list(full) + list(tiny):
-        errs.append(compare_i1(*i1_site(dev, g, shape, cout, k)))
-        checked.append([*shape, cout, k])
+        err, q_err, route = compare_i1(*i1_site(dev, g, shape, cout, k))
+        errs.append(err)
+        q_errs.append(q_err)
+        checked.append([*shape, cout, k, route])
     for M in (LM_BEAMS, 8 * LM_BEAMS):
         for K, N in ((512, 2048), (2048, 512), (512, LM_VOCAB)):
             errs.append(compare_i1_gemm(dev, g, M, K, N))
-            checked.append([M, K, N])
-    edges = [((1, 64, 3, 5), 64, 3, {}),             # B*H*W below one tile
+            checked.append([M, K, N, "mma"])
+    edges = [((1, 64, 3, 5), 64, 3, {}),             # W < 128: one tile
              ((3, 8, 7, 37), 40, 3, {}),              # W off the tile, Cin 8
              ((2, 48, 5, 129), 72, 1, {}),            # 1x1, N off the tile
              ((2, 64, 4, 50), 64, 3, {"amax_share": 0.0}),   # amax 0
              ((2, 1, 16, 33), 64, 3, {"dtype": torch.float32}),
-             ((2, 32, 6, 19), 64, 3, {"bias": False})]
+             ((2, 32, 6, 19), 64, 3, {"bias": False}),
+             ((2, 128, 3, 200), 128, 3, {}),          # W not a multiple of 128
+             ((2, 64, 1, 300), 64, 3, {}),            # H = 1, Cout 64
+             ((2, 64, 4, 130), 128, 1, {}),           # 1x1 with Cin 64
+             ((2, 128, 5, 140), 256, 3, {"dtype": torch.float32}),  # f32 out
+             ((2, 64, 3, 37), 72, 3, {}),             # W * 2 bytes off 16
+             ((2, 256, 4, 129), 320, 3, {"bias": False})]   # N tail tile
     for shape, cout, k, kw in edges:
-        errs.append(compare_i1(*i1_site(dev, g, shape, cout, k, **kw)))
-        checked.append([*shape, cout, k])
-    out = {"timed": times, "checked": checked, "max_abs_err": max(errs),
-           "sites": {"hctr": HCTR_SITES, "hctr-tiny": TINY_SITES}}
+        err, q_err, route = compare_i1(*i1_site(dev, g, shape, cout, k,
+                                                **kw))
+        errs.append(err)
+        q_errs.append(q_err)
+        checked.append([*shape, cout, k, route])
+    out = {"timed": times, "by_site": by_site, "host_us": i1_host_us(dev),
+           "checked": checked, "max_abs_err": max(errs),
+           "quantize_max_abs_err": max(q_errs),
+           "sites": {"hctr": HCTR_SITES, "hctr-tiny": TINY_SITES},
+           "sites_on_wgmma": {"hctr": HCTR_WGMMA, "hctr-tiny": TINY_WGMMA}}
     emit({"phase": "int8_kernels", **out})
     return out
 
@@ -2230,19 +2329,55 @@ def int8_engine(model_tag: str, state, codec, dev, **kw) -> ServingEngine:
 
 
 def reset_i1() -> None:
-    ic.launches = ic.quantize_launches = 0
+    ic.quantize_launches = 0
+    ic.launches_by_route.update(wgmma=0, mma=0)
 
 
 def i1_counts() -> dict:
-    return {"conv": ic.launches, "quantize": ic.quantize_launches}
+    return {"conv": sum(ic.launches_by_route.values()),
+            "quantize": ic.quantize_launches,
+            **ic.launches_by_route}
+
+
+def i1_per(sites: int, wgmma: int, n: int = 1) -> dict:
+    """I1's launches in ``n`` forwards of a model with ``sites`` conv sites,
+    ``wgmma`` of them on that route."""
+    return {"conv": sites * n, "quantize": sites * n, "wgmma": wgmma * n,
+            "mma": (sites - wgmma) * n}
+
+
+# a forward's kernels by the name the profiler gives them, in this order
+FORWARD_GROUPS = (("i1_conv_wgmma", "conv_wgmma_kernel"),
+                  ("i1_conv_mma", "conv_s8_kernel"),
+                  ("i1_quantize", "quantize_"),
+                  ("cudnn_conv", "fprop"), ("elementwise", "elementwise"))
+
+
+def forward_breakdown(model, x) -> dict:
+    """One forward under torch.profiler: device busy ms, kernel launches and
+    device ms by ``FORWARD_GROUPS`` (the rest as ``other``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        model(x)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    groups = {name: 0.0 for name, _ in FORWARD_GROUPS}
+    groups["other"] = 0.0
+    for key, ms, _ in kernels:
+        name = next((n for n, tag in FORWARD_GROUPS if tag in key), "other")
+        groups[name] += ms
+    return {"device_ms": sum(ms for _, ms, _ in kernels),
+            "launches": sum(n for _, _, n in kernels), "by_group_ms": groups}
 
 
 def phase_serve_int8(dev, codec, state) -> dict:
     """The seeded full-width ``hctr`` served greedy through
     ``ServingDaemon`` with ``int8=True`` on the 16 lines of ``serve``
     (calibrated on the first batch), beside the bf16 engine in the same
-    call: lines/s, the forward's ms at each bucket width, peak memory, the
-    33 sites and I1's launches a forward, and the int8 logits within
+    call: lines/s, the forward's ms at each bucket width and its device
+    time by kernel group (``forward_breakdown``), peak memory, the 33
+    sites and I1's launches a forward by route, and the int8 logits within
     ``INT8_LOGIT_TOL`` of the bf16 logits' scale."""
     images = text_lines(N_REQUESTS, seed=0)
     engines = {"bf16": int8_engine("hctr", state, codec, dev),
@@ -2282,24 +2417,25 @@ def phase_serve_int8(dev, codec, state) -> dict:
     items = [q.preprocess_array(a) for a in images]
     buckets = [bw for bw, _ in items]
     batches = 2 * sum(-(-buckets.count(bw) // BATCH) for bw in set(buckets))
-    check(counts == {"conv": HCTR_SITES * batches,
-                     "quantize": HCTR_SITES * batches},
+    check(counts == i1_per(HCTR_SITES, HCTR_WGMMA, batches),
           f"serve_int8: I1 launches {counts} for {batches} batches")
     w = WIDTHS[-1]
     rows = [x for bw, x in items if bw == w] or [items[0][1]]
     u8 = torch.from_numpy(np.concatenate((rows * BATCH)[:BATCH]))
     fwd, per_forward = {"bf16": {}, "int8": {}}, None
+    breakdown = {"bf16": {}, "int8": {}}
     with torch.inference_mode():
         for bw in WIDTHS:
             xw = (u8[:, :, :bw].to(dev).float() - 127.5) / 127.5
             for name, engine in engines.items():
                 fwd[name][str(bw)] = cuda_ms(lambda: engine.model(xw))
+                breakdown[name][str(bw)] = forward_breakdown(engine.model, xw)
         x = (u8.to(dev).float() - 127.5) / 127.5
         reset_i1()
         lq = q.model(x)
         per_forward = i1_counts()
         lf = engines["bf16"].model(x)
-    check(per_forward == {"conv": HCTR_SITES, "quantize": HCTR_SITES},
+    check(per_forward == i1_per(HCTR_SITES, HCTR_WGMMA),
           f"serve_int8: I1 launches a forward {per_forward}")
     check(bool(torch.isfinite(lq).all()) and lq.shape == lf.shape,
           "serve_int8: int8 logits not finite or misshapen")
@@ -2313,6 +2449,7 @@ def phase_serve_int8(dev, codec, state) -> dict:
            "sites": len(q._quant), "batches_served": batches,
            "i1_launches_per_forward": per_forward,
            "i1_launches_serving": counts, "forward_ms_by_width": fwd,
+           "forward_device_by_width": breakdown,
            "int8_vs_bf16_logits_of_scale": rel,
            "lines_differing_from_bf16": differ, **out}
     emit({"phase": "serve_int8", **res})
@@ -2393,7 +2530,13 @@ def phase_demo_hard_int8(dev) -> dict:
                       <= INT8_LINES_DIFFER,
                       f"demo_hard_int8 {route} on its own calibration: {res}")
             out[key] = res
-    check(all(c["conv"] == c["quantize"] > 0 for c in counts.values()),
+    # greedy: the 17 sites a batch; -ss --lm-int8 adds the LM's GEMMs (mma)
+    check(all(c["conv"] == c["quantize"] == c["wgmma"] + c["mma"]
+              and c["wgmma"] > 0 and c["wgmma"] % TINY_WGMMA == 0
+              and (not key.startswith("greedy")
+                   or c == i1_per(TINY_SITES, TINY_WGMMA,
+                                  c["wgmma"] // TINY_WGMMA))
+              for key, c in counts.items()),
           f"demo_hard_int8 I1 launches {counts}")
     emit({"phase": "demo_hard_int8", "model": "hctr-tiny (trained, f32)",
           "lm": "char 128d/3L (trained, f32, int8 step)",
@@ -2444,7 +2587,9 @@ def eval_int8_commands(dev, files, truth, batch: int) -> dict:
         check(launched["conv"] == launched["quantize"]
               >= per_batch * n_batches
               and (launched["conv"] == per_batch * n_batches
-                   or "--lm-int8" in flags),
+                   or "--lm-int8" in flags)
+              and launched["wgmma"] == TINY_WGMMA * n_batches
+              and launched["mma"] == launched["conv"] - launched["wgmma"],
               f"eval {name}: I1 launches {launched}")
         out[name] = {"argv": " ".join(argv[:-len(flags)] + flags),
                      "cer": result, "cer_check": cer(texts, truth),
@@ -3123,11 +3268,10 @@ def phase_export(dev, codec, state) -> dict:
             with torch.inference_mode():
                 fns[WIDTHS[0]](weights, u8[:, :, :WIDTHS[0]].to(dev))
             per_forward = i1_counts()
-            check(per_forward == {"conv": HCTR_SITES,
-                                  "quantize": HCTR_SITES},
+            check(per_forward == i1_per(HCTR_SITES, HCTR_WGMMA),
                   f"export int8: I1 launches a program call {per_forward}")
-            n = HCTR_SITES * len(batches)
-            check(counts["export_int8"] == {"conv": n, "quantize": n},
+            check(counts["export_int8"] == i1_per(HCTR_SITES, HCTR_WGMMA,
+                                                  len(batches)),
                   f"export int8: I1 launches {counts['export_int8']} for "
                   f"{len(batches)} batches")
             out[kind + "_i1_launches_per_forward"] = per_forward
@@ -3169,9 +3313,8 @@ def phase_export(dev, codec, state) -> dict:
                                         batch)
         if kind == "int8":
             counts["export_demo_hard_int8"] = i1_counts()  # ---- end
-            n = TINY_SITES * len(batches)
-            check(counts["export_demo_hard_int8"] == {"conv": n,
-                                                      "quantize": n},
+            check(counts["export_demo_hard_int8"] == i1_per(
+                TINY_SITES, TINY_WGMMA, len(batches)),
                   f"export demo/hard int8: I1 launches "
                   f"{counts['export_demo_hard_int8']}")
         check_eager(engine, batches, f"export demo/hard {kind}")
@@ -3466,15 +3609,27 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     heavy = i1["timed"][0]
+    src = "handwritten_chinese_ocr_samples_torch/csrc/int8_conv.cu"
     rows.append({
-        "name": "int8_conv", "route": "cuda",
-        "source": "handwritten_chinese_ocr_samples_torch/csrc/int8_conv.cu",
+        "name": "int8_conv", "route": "cuda", "source": src,
         "replaces": "handwritten_chinese_ocr_samples_tpu/models/hctr.py:59",
         "launches": sum(c["conv"] for c in int8_paths.values()),
+        "launches_by_route": {r: sum(c[r] for c in int8_paths.values())
+                              for r in ("wgmma", "mma")},
         "max_abs_err": i1["max_abs_err"], "ms": heavy["ms"],
-        "plain_ms": heavy["plain_ms"], "bound_ms": heavy["bound_ms"],
-        "bound_by": heavy["bound_by"], "library_ms": heavy["library_ms"],
+        "mma_ms": heavy["mma_ms"], "plain_ms": heavy["plain_ms"],
+        "bound_ms": heavy["bound_ms"], "bound_by": heavy["bound_by"],
+        "library_ms": heavy["library_ms"],
         "bf16_conv_ms": heavy["bf16_conv_ms"]})
+    rows.append({
+        "name": "int8_quantize", "route": "cuda", "source": src,
+        "replaces": "handwritten_chinese_ocr_samples_tpu/models/hctr.py:110",
+        "launches": sum(c["quantize"] for c in int8_paths.values()),
+        "max_abs_err": i1["quantize_max_abs_err"],
+        "ms": heavy["quantize_ms"],
+        "plain_ms": heavy["quantize_plain_ms"],
+        "bound_ms": heavy["quantize_bound_ms"],
+        "bound_by": heavy["quantize_bound_by"], "library_ms": None})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,26 +29,39 @@ Layouts: activations quantize from NCHW (or ``(M, K)`` rows) into NHWC s8;
 weights are ``(N, Kp)`` s8, K ordered ``(dy, dx, c)`` and zero-padded to
 ``Kp``, a multiple of 32 (``pack_weight``). Scales live on the device
 (``s_x`` as one f32 element), so nothing here waits for the card.
+
+The conv entry point has two kernels, picked by shape alone
+(``conv_route``): ``"wgmma"`` (TMA-fed ``wgmma``) for an NHWC input whose
+Cin is a multiple of 64, ``"mma"`` (``mma.sync``) for every other shape
+(Cin 1-32 and the LM's GEMMs). A shape on the ``wgmma`` route launches that
+kernel or raises; nothing falls back to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-# Launches of I1 in this process: the conv entry point and the quantize
-# entry point (the plain versions add none).
-launches = 0
+# Launches of I1 in this process: the conv entry point by kernel (their
+# sum is all of its launches) and the quantize entry point (the plain
+# versions add none).
+launches_by_route = {"wgmma": 0, "mma": 0}
 quantize_launches = 0
 
 QMAX = 127.0
 _K_ALIGN = 32
+_WGMMA_CIN = 64   # the wgmma route's K chunk: 64-byte TMA boxes of channels
+_ROUTE_CODE = {"mma": 0, "wgmma": 1}
 
 
+@functools.cache
 def _kernels():
+    """I1's two C entry points, built and loaded at first use (once: the
+    lookup costs the host more than a launch at the served shapes)."""
     from . import _build
     lib = _build.load("int8_conv")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -56,9 +69,23 @@ def _kernels():
     q.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     q.restype = i32
     c = lib.hctr_int8_conv
-    c.argtypes = [ptr] * 6 + [i32] * 10 + [ptr]
+    c.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
     c.restype = i32
     return q, c
+
+
+def conv_route(x_shape, kh: int, kw: int) -> str:
+    """Which of I1's conv kernels takes an s8 input of ``x_shape`` (``(B,
+    H, W, Cin)``, or ``(M, K)`` for a GEMM) with a ``(kh, kw)`` kernel:
+    ``"wgmma"`` where the input is NHWC with Cin a positive multiple of 64
+    (every TMA stride is then a multiple of 16 bytes and K a whole number of
+    64-byte chunks a tap) and the kernel is (3, 3) or (1, 1); ``"mma"``
+    for every other shape."""
+    if (len(x_shape) == 4 and x_shape[-1] > 0
+            and x_shape[-1] % _WGMMA_CIN == 0
+            and (kh, kw) in ((3, 3), (1, 1))):
+        return "wgmma"
+    return "mma"
 
 
 def scale_of(amax: torch.Tensor) -> torch.Tensor:
@@ -218,6 +245,16 @@ def _conv_op(xq: torch.Tensor, wq: torch.Tensor, alpha: torch.Tensor,
 
 @_conv_op.register_kernel("cuda")
 def _conv_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype):
+    return conv_int8_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype)
+
+
+def conv_int8_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype,
+                   route: Optional[str] = None) -> torch.Tensor:
+    """I1's conv entry point on CUDA tensors (``conv_int8``'s arguments,
+    checked there). ``route`` is ``conv_route``'s choice unless given:
+    ``"mma"`` runs the ``mma.sync`` kernel at any shape, so that both
+    kernels can be timed at one shape; ``"wgmma"`` at a shape that route
+    does not take raises."""
     tensors = (xq, wq, alpha, scale) + (() if bias is None else (bias,))
     if any(t.device != xq.device for t in tensors):
         raise ValueError("every operand must be on one CUDA device")
@@ -225,6 +262,11 @@ def _conv_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype):
         raise ValueError("all operands must be contiguous")
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("xq and wq must be 16-byte aligned")
+    by_shape = conv_route(xq.shape, kh, kw)
+    route = route or by_shape
+    if route == "wgmma" != by_shape:
+        raise ValueError(f"the wgmma kernel does not take {tuple(xq.shape)} "
+                         f"with a ({kh}, {kw}) kernel")
     gemm = xq.dim() == 2
     cin = xq.shape[-1]
     N, Kp = wq.shape
@@ -239,11 +281,13 @@ def _conv_cuda(xq, wq, alpha, scale, bias, kh, kw, out_dtype):
         rc = kc(xq.data_ptr(), wq.data_ptr(), alpha.data_ptr(),
                 scale.data_ptr(), None if bias is None else bias.data_ptr(),
                 out.data_ptr(), B, H, W, cin, N, kh, kw, kh // 2, Kp,
-                int(out_dtype == torch.bfloat16), stream)
+                int(out_dtype == torch.bfloat16), _ROUTE_CODE[route], stream)
     if rc != 0:
-        raise RuntimeError(f"int8 conv kernel launch failed: cudaError {rc}")
-    global launches
-    launches += 1
+        why = {-1: "no TMA descriptor", -2: "shape refused"}.get(
+            rc, f"cudaError {rc}")
+        raise RuntimeError(f"int8 conv kernel ({route}) launch failed: "
+                           f"{why}")
+    launches_by_route[route] += 1
     return out
 
 

@@ -15,10 +15,16 @@ I1's wrappers run their plain versions.
   and the int8 engine's texts against the JAX int8 engine's.
 * ``tools/convert_to_torch.py --int8``'s calibration tree (``int8.json``)
   equals a fresh JAX calibration on the JAX engine's first batch.
+* I1's route rule (``conv_route``): which conv kernel each site shape of
+  ``hctr`` (b4 w1600) and ``hctr-tiny`` (b4 w512) and each of the LM's
+  GEMM shapes takes, and that every shape on the ``wgmma`` route meets its
+  TMA alignment; a shape off that route is refused there, never sent to
+  the other kernel.
 """
 
 import json
 import os
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -172,6 +178,112 @@ def test_plain_int8_product_is_exact(kernel, cin, hw):
     ref = ((torch.from_numpy(want.astype(np.float32)) * alpha)
            * sc.reshape(bshape) + b.reshape(bshape)).bfloat16()
     assert torch.equal(y, ref)
+
+
+# Every distinct conv site of a full-width hctr forward at b4 w1600 and of a
+# hctr-tiny one at b4 w512: ((B, Cin, H, W), Cout, k) -> (sites, route).
+HCTR_B4_W1600 = {
+    ((4, 1, 128, 1600), 64, 3): (1, "mma"),
+    ((4, 64, 128, 1600), 64, 3): (1, "wgmma"),
+    ((4, 64, 64, 1600), 128, 3): (1, "wgmma"),
+    ((4, 128, 64, 1600), 128, 3): (4, "wgmma"),
+    ((4, 64, 64, 1600), 128, 1): (1, "wgmma"),
+    ((4, 128, 32, 1600), 256, 3): (1, "wgmma"),
+    ((4, 256, 32, 1600), 256, 3): (8, "wgmma"),
+    ((4, 128, 32, 1600), 256, 1): (1, "wgmma"),
+    ((4, 256, 16, 1600), 512, 3): (1, "wgmma"),
+    ((4, 512, 16, 1600), 512, 3): (10, "wgmma"),
+    ((4, 256, 16, 1600), 512, 1): (1, "wgmma"),
+    ((4, 512, 8, 1600), 512, 3): (3, "wgmma"),
+}
+TINY_B4_W512 = {
+    ((4, 1, 128, 512), 8, 3): (1, "mma"),
+    ((4, 8, 128, 512), 8, 3): (1, "mma"),
+    ((4, 8, 64, 512), 16, 3): (1, "mma"),
+    ((4, 16, 64, 512), 16, 3): (2, "mma"),
+    ((4, 8, 64, 512), 16, 1): (1, "mma"),
+    ((4, 16, 32, 512), 32, 3): (1, "mma"),
+    ((4, 32, 32, 512), 32, 3): (2, "mma"),
+    ((4, 16, 32, 512), 32, 1): (1, "mma"),
+    ((4, 32, 16, 512), 64, 3): (1, "mma"),
+    ((4, 64, 16, 512), 64, 3): (2, "wgmma"),
+    ((4, 32, 16, 512), 64, 1): (1, "mma"),
+    ((4, 64, 8, 512), 64, 3): (3, "wgmma"),
+}
+# the int8 LM step's GEMMs (M, K, N) at the served beams (4 lines x 10) and
+# eight times that: FF in and out of char-512x6, and the logits
+LM_GEMMS = [(M, K, N) for M in (40, 320)
+            for K, N in ((512, 2048), (2048, 512), (512, 7377))]
+FULL_CHARS = os.path.join(os.path.dirname(DATA), "..", "full", "data",
+                          "chars_list.txt")
+
+
+@pytest.mark.parametrize("tag,width,table,on_wgmma",
+                         [("hctr", 1600, HCTR_B4_W1600, 32),
+                          ("hctr-tiny", 512, TINY_B4_W512, 5)])
+def test_site_tables_are_the_models(tag, width, table, on_wgmma):
+    """The tables above are the models' own sites (hooks on a forward of
+    meta tensors, so nothing is computed): 33 and 17 sites, 32 and 5 of
+    them on the wgmma route."""
+    model, _ = get_model_info(tag, chars_list_file=FULL_CHARS,
+                              dtype=torch.bfloat16)
+    model = model.to("meta").eval()
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: seen.append((tuple(a[0].shape), m.out_channels,
+                                  m.kernel_size[0])))
+        for m in quant.conv_sites(model).values()]
+    with torch.inference_mode():
+        model(torch.zeros((4, 128, width, 1), device="meta"))
+    for h in hooks:
+        h.remove()
+    assert Counter(seen) == {site: n for site, (n, _) in table.items()}
+    assert sum(n for n, route in table.values() if route == "wgmma") == (
+        on_wgmma)
+
+
+@pytest.mark.parametrize("site", list(HCTR_B4_W1600) + list(TINY_B4_W512))
+def test_route_rule_conv_sites(site):
+    """Each site shape takes the kernel of the tables; a shape on the wgmma
+    route meets that route's needs: NHWC s8 strides (Cin, W * Cin, H * W *
+    Cin bytes) that are multiples of 16, as TMA requires; whole 64-byte
+    channel chunks a tap, so the packed weight has no padding (Kp = K) and
+    its rows are a multiple of 16 bytes apart; a 3x3 or 1x1 kernel."""
+    (B, cin, H, W), cout, k = site
+    want = {**HCTR_B4_W1600, **TINY_B4_W512}[site][1]
+    assert ic.conv_route((B, H, W, cin), k, k) == want
+    if want == "mma":
+        return
+    assert all(stride % 16 == 0 for stride in (cin, W * cin, H * W * cin))
+    assert cin % 64 == 0 and k in (1, 3)
+    packed = ic.pack_weight(torch.zeros((cout, k * k * cin),
+                                        dtype=torch.int8))
+    assert packed.shape[1] == k * k * cin and packed.shape[1] % 64 == 0
+
+
+@pytest.mark.parametrize("mkn", LM_GEMMS)
+def test_route_rule_lm_gemms(mkn):
+    """The LM's GEMMs (2-D s8 rows) stay on the mma.sync kernel."""
+    M, K, _ = mkn
+    assert ic.conv_route((M, K), 1, 1) == "mma"
+
+
+def test_wgmma_route_refuses_other_shapes():
+    """The route is chosen by shape and never by failure: asking the wgmma
+    kernel for a shape off its route raises before anything launches, and
+    the plain version on a CPU tensor counts no launch."""
+    xq = torch.zeros((1, 4, 4, 32), dtype=torch.int8)
+    wq = ic.pack_weight(torch.zeros((8, 9 * 32), dtype=torch.int8))
+    one, scale = torch.ones(1), torch.ones(8)
+    before = dict(ic.launches_by_route)
+    with pytest.raises(ValueError, match="wgmma kernel does not take"):
+        ic.conv_int8_cuda(xq, wq, one, scale, None, 3, 3, torch.float32,
+                          route="wgmma")
+    ic.conv_int8(xq, wq, one, scale, None, 3, 3, torch.float32)
+    assert ic.launches_by_route == before
+    for shape, k in (((1, 4, 4, 96), 3), ((1, 4, 4, 64), 5), ((8, 64), 1),
+                     ((1, 4, 4, 0), 3)):
+        assert ic.conv_route(shape, k, k) == "mma"
 
 
 def test_site_subset_and_state():
