@@ -6,6 +6,7 @@
     python3 chip_smoke.py --int8
     python3 chip_smoke.py --export
     python3 chip_smoke.py --lm
+    python3 chip_smoke.py --classify
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
@@ -53,12 +54,15 @@ code is non-zero. The last line is ``{"ok": true, "device": {...}}``.
 
 The training phases launch none of K1-K4 (training reaches no TPU kernel):
 
-  * ``train_parity``: one SGD and one Adam step of ``hctr-tiny`` in f32
-    (dropout 0) from the same seeded weights on the card, held against the
-    same step on the CPU with f64 activations (loss, gradients, new
-    parameters, new running statistics) within the ``TRAIN_*_TOL``
-    tolerances or the CPU's own f32 distance from it; ``dropout_recompute``'s
-    backward mask equal to its forward's, and its keep fractions.
+  * ``train_parity``: one SGD and one Adam step of ``hctr-tiny`` (dropout
+    0) from the same seeded weights on the card, held against the same
+    step on the CPU with f64 activations by ``steps_parity``'s rule (loss,
+    gradients, new parameters, new running statistics: the card's f64
+    step within the ``TRAIN_*_TOL`` tolerances, its f32 step taking the
+    reference's ReLU and pool choices within them or 4x the CPU's f32
+    step taking the same, its own f32 choices within ``FWD_TOL`` of 0 or
+    a tie); ``dropout_recompute``'s backward mask equal to its forward's,
+    and its keep fractions.
   * ``train_full``: 30 steps of the full-width ``hctr`` (bf16 compute, f32
     parameters, dropout on) at ``demo/full/RESULTS.md``'s recipe on
     ``demo/full``'s training lines, through the port's ``Trainer``: ms a
@@ -93,9 +97,33 @@ its custom ops):
     for byte the committed ``demo/hard/lm/ngram.arpa`` and ``ngram.hblm``,
     and ``cli/lm_binarize.py --check``.
 
+The classifier (``-m innovation``), ``--profile`` and the reference's
+checkpoints (no new kernel; the classifier reaches no TPU kernel):
+
+  * ``classify_parity``: one SGD and one Adam step of the full-width
+    ``innovation`` (7375 classes, dropout 0) at 32x32 squares, b4, held
+    as ``train_parity``'s; the multiscale + attention variant's eval
+    forward at 128x128 within ``FWD_TOL`` of the CPU's;
+  * ``classify_full``: 40 steps of the full-width ``innovation`` at
+    128x128, b64, bf16 compute, Adam, dropout on, through the ``Trainer``
+    on seeded glyph PNGs: ms a step, images/s, the share of the bf16 peak,
+    peak memory, the idle share and top kernels under torch.profiler; the
+    loss finite and falling, no K1-K4 or I1 launch;
+  * ``classify_cli``: a seeded 16-class glyph set written as GNT zips,
+    through the port's ``gnt2png``, ``generate_char_img_gt`` and
+    ``build_split``, then ``cli/train.py -m innovation --profile`` in a
+    subprocess for 8 epochs, the last at a test accuracy of at least 0.9,
+    ``--test`` on the checkpoints printing the same, the misses named,
+    and the test accuracy with BatchNorm statistics gathered anew;
+  * ``profile_eval``: ``cli/test.py --profile -bm -dm beam-search`` on 16
+    demo/hard lines: the unprofiled CER and texts, and K1 in the trace;
+  * ``pth``: a reference ``.pth.tar`` of the demo/hard weights through
+    ``cli/test.py`` (the 150 texts of ``hctr_tiny.pt``) and
+    ``cli/export.py`` (the same weights and served texts).
+
 ``--int8`` runs only the build and the int8 phases; ``--export`` only the
 build and ``export``; ``--lm`` only the build, ``lm_train`` and
-``ngram_train``. ``--kernels`` runs
+``ngram_train``; ``--classify`` only the build and the five phases above. ``--kernels`` runs
 only the build and the kernel phases: K1 at the shapes of ``K1_SHAPES``,
 K2-K4 on a seeded frame of the served LM route's shapes and
 ``int8_kernels``, timing the kernels before checking them. ``--train``
@@ -108,6 +136,7 @@ products, so f32 work on the card is full f32.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -116,6 +145,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -280,10 +310,13 @@ TRAIN_PARAM_TOL = 1e-3
 # flip, so it is counted and bounded by 2 lr instead
 ADAM_FLIP_SHARE = 1e-4
 TRAIN_STAT_TOL = 1e-5          # new running statistics, absolute
-# f32 on the CPU lies up to 6e-3 of a tensor's largest gradient from f64
-# here (ReLU inputs within f32 rounding of 0 flip): the card's f32 may lie
-# as far from f64 as this many times the CPU's, where that exceeds a
-# tolerance above
+PARITY_TOL = {"loss_rel": TRAIN_LOSS_TOL, "grad_of_max": TRAIN_GRAD_TOL,
+              "param_over_lr": TRAIN_PARAM_TOL, "stat": TRAIN_STAT_TOL}
+# the card's f32 step, taking the reference's ReLU and pool choices, may
+# lie as far from f64 as this many times the CPU's f32 step taking them,
+# where that exceeds a tolerance above (hctr-tiny's CPU f32: 2.4e-4 of a
+# tensor's largest gradient; without the choices 6.1e-3, from 5 ReLU
+# inputs and one pool window within 3e-7 of 0 or a tie)
 F32_NOISE_MARGIN = 4
 DROPOUT_RATES = (0.1, 0.3, 0.9)
 DROPOUT_N = 1 << 24            # draws a rate for the keep fraction (4 sigma)
@@ -311,6 +344,32 @@ JAX_CLI_ACC = {0: 0.9161, 1: 0.9138, 2: 0.9131}
 # generators and other bf16 roundings move one run that far
 TRAIN_CLI_ACC_TOL = 0.0129
 TRAIN_CLI_TIMEOUT = 600        # seconds for one run of the CLI
+# classify_parity: the full-width innovation (7375 classes, dropout 0), one
+# SGD and one Adam step at CLASSIFY_SIDE squares, b4, held as train_parity
+# (steps_parity); then the multiscale + attention variant's eval forward at
+# 128x128, b2, within FWD_TOL
+CLASSIFY_PARITY_B, CLASSIFY_SIDE, CLASSIFY_FWD_B = 4, 32, 2
+# classify_full: innovation at 128x128, 7375 classes, b64, bf16 compute
+# with f32 parameters, Adam (the model's), dropout on, through the Trainer
+# on CLASSIFY_STEPS * 64 seeded glyph PNGs of CLASSIFY_CLASSES classes
+CLASSIFY_RECIPE = dict(batch_size=64, lr=1e-3, weight_decay=1e-4, seed=0,
+                       workers=4)
+CLASSIFY_CLASSES = 64
+CLASSIFY_STEPS = 40
+CLASSIFY_TIMED_FROM = 10       # steps 11-40 are timed (past cuDNN's autotune)
+CLASSIFY_REPLAYED = 10         # the last steps' batches, profiled
+GLYPH_NOISE = 25.0             # pixel noise sigma of a seeded glyph
+# classify_cli: 16 GB2312 characters (B0A1-B0B0), a GNT member a writer
+CLASSIFY_CLI_CODES = tuple(0xB0A1 + i for i in range(16))
+CLASSIFY_CLI_WRITERS, CLASSIFY_CLI_TEST_WRITERS = 128, 8
+CLASSIFY_CLI_EPOCHS, CLASSIFY_CLI_BATCH, CLASSIFY_CLI_SEED = 8, 32, 11
+CLASSIFY_CLI_PRINT = 10        # -pf: the train loss every 10 steps
+# the bar of the JAX package's test_trainer_classification_e2e, on the
+# accuracy after the last epoch (tests/test_classify_train.py:139-140)
+CLASSIFY_CLI_ACC = 0.9
+# profile_eval: a trace of all 150 lines of the device beam runs to
+# gigabytes (16 lines gave 72 MB of host events alone on the CPU)
+PROFILE_EVAL_LINES = 16
 # demo/hard's text source (tools/make_hard_demo.py:79-97, copied below):
 # 200 glyph classes in 100 confusable pairs, a sparse bigram chain over
 # them; its LMs were trained on 8000 lines of default_rng(7) at seed 42
@@ -2651,38 +2710,132 @@ def zero_in_exact_arithmetic(name: str) -> bool:
     return name.endswith("bias") and "conv" in name
 
 
-def one_step(dev, kind: str, weights: dict, batch: dict,
-             dtype=torch.float32) -> dict:
-    """The gradients of ``batch``'s loss, then one train step of ``kind``,
-    from ``weights`` on ``dev``, activations in ``dtype``; all on the CPU
-    after."""
+class ParityCase(NamedTuple):
+    """A model and its train step for ``steps_parity``: ``model(dev,
+    dtype)`` builds it with dropout 0, ``batch(numpy batch, dev)`` puts the
+    step's inputs where they belong, ``loss(logits, batch)`` is the step's
+    loss, ``step()`` makes the step."""
+    model: Callable
+    batch: Callable
+    loss: Callable
+    step: Callable
+
+
+def tiny_case() -> ParityCase:
+    """``hctr-tiny`` and the CTC step."""
     from handwritten_chinese_ocr_samples_torch.ops.ctc import ctc_loss_mean
     from handwritten_chinese_ocr_samples_torch.train import step as tstep
-    model, _ = tiny_trainee(dev, stage_drop=(0.0,) * 4, block_drop=0.0,
-                            dtype=dtype)
+    return ParityCase(
+        model=lambda dev, dtype: tiny_trainee(
+            dev, stage_drop=(0.0,) * 4, block_drop=0.0, dtype=dtype)[0],
+        batch=step_batch,
+        loss=lambda logits, b: ctc_loss_mean(logits, b["labels"],
+                                             b["label_paddings"]),
+        step=tstep.make_train_step)
+
+
+def classify_case() -> ParityCase:
+    """The full-width ``innovation`` and the cross-entropy step."""
+    import torch.nn.functional as F
+    from handwritten_chinese_ocr_samples_torch.train import step as tstep
+    return ParityCase(
+        model=lambda dev, dtype: classify_trainee(
+            dev, stage_drop=(0.0,) * 4, block_drop=0.0, head_drop=0.0,
+            dtype=dtype)[0],
+        batch=lambda batch, dev: {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()},
+        loss=lambda logits, b: F.cross_entropy(logits, b["labels"].long()),
+        step=tstep.make_classify_train_step)
+
+
+class Decisions(torch.overrides.TorchFunctionMode):
+    """The discrete choices of a model's forward: each ``F.relu``'s input
+    (its sign decides whether the gradient passes) and each
+    ``F.max_pool2d``'s input and indices (which element takes the
+    gradient), in call order, from the first forward after ``attach``, on
+    the CPU in f64 when ``record``. With ``replay`` (another run's
+    ``Decisions``) every forward takes that run's choices instead of its
+    own: a ReLU passes where that run's input was positive, a pool takes
+    that run's element."""
+
+    def __init__(self, record: bool = True, replay=None):
+        super().__init__()
+        self.record, self.replay = record, replay
+        self.relu, self.pool_in, self.pool = [], [], []
+        self.forwards = 0
+        self.calls = {"relu": 0, "pool": 0}
+
+    def attach(self, model: torch.nn.Module):
+        def start(module, args):
+            self.forwards += 1
+            self.calls = {"relu": 0, "pool": 0}
+        return model.register_forward_pre_hook(start)
+
+    def _next(self, what: str) -> int:
+        k = self.calls[what]
+        self.calls[what] += 1
+        return k
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        import torch.nn.functional as F
+        kwargs = kwargs or {}
+        keep = self.record and self.forwards == 1
+        if func is F.relu:
+            x, k = args[0], self._next("relu")
+            if keep:
+                self.relu.append(x.detach().to("cpu", torch.float64))
+            if self.replay is not None:
+                return x * (self.replay.relu[k] > 0).to(x.device, x.dtype)
+        elif func is F.max_pool2d:
+            x, k = args[0], self._next("pool")
+            y, idx = func(*args, **{**kwargs, "return_indices": True})
+            if keep:
+                self.pool_in.append(x.detach().to("cpu", torch.float64))
+                self.pool.append(idx.cpu())
+            if self.replay is None:
+                return y
+            idx = self.replay.pool[k].to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return func(*args, **kwargs)
+
+
+def one_step(dev, kind: str, case: ParityCase, weights: dict, batch: dict,
+             dtype=torch.float32, record: bool = False,
+             replay: Decisions | None = None) -> dict:
+    """The gradients of ``batch``'s loss, then one train step of ``kind``,
+    of ``case``'s model from ``weights`` on ``dev``, activations in
+    ``dtype``; all on the CPU after, with the forward's ``Decisions``
+    (recorded if ``record``, another run's taken if ``replay``)."""
+    from handwritten_chinese_ocr_samples_torch.train import step as tstep
+    model = case.model(dev, dtype)
+    b = case.batch(batch, dev)
     model.load_state_dict(weights)
     model.train()
-    b = step_batch(batch, dev)
-    names, params = zip(*model.named_parameters())
-    loss = ctc_loss_mean(model(b["images"]), b["labels"],
-                         b["label_paddings"])
-    grads = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(loss,
-                                                                   params))}
-    state = tstep.TrainState.create(
-        model, tstep.make_optimizer(kind, lr=PARITY_LR[kind]))
-    state, metrics = tstep.make_train_step()(state, b, 0)
+    decisions = Decisions(record, replay)
+    hook = decisions.attach(model)
+    with decisions:
+        names, params = zip(*model.named_parameters())
+        grads = {n: g.cpu() for n, g in zip(names, torch.autograd.grad(
+            case.loss(model(b["images"]), b), params))}
+        state = tstep.TrainState.create(
+            model, tstep.make_optimizer(kind, lr=PARITY_LR[kind]))
+        state, metrics = case.step()(state, b, 0)
+    hook.remove()
     return {"loss": float(metrics["loss"]),
             "grad_norm": float(metrics["grad_norm"]),
             "skipped": float(metrics["skipped"]), "grads": grads,
-            "new": {k: v.cpu() for k, v in model.state_dict().items()}}
+            "new": {k: v.cpu() for k, v in model.state_dict().items()},
+            "decisions": decisions}
 
 
-def adam_flips(grads: dict, weights: dict, noise: dict) -> dict:
+def adam_flips(grads: dict, weights: dict, noise: dict,
+               floor: float = 0.0) -> dict:
     """Elements whose Adam direction u (clipped gradient + weight decay)
     may change sign between two f32 evaluations: |u| under
     ``ADAM_FLIP_SHARE`` of their tensor's largest (the model's, for a conv
     bias that feeds a BatchNorm), or under ``F32_NOISE_MARGIN`` times the
-    tensor's largest f32 gradient error ``noise`` (clipped alike)."""
+    tensor's largest f32 gradient error ``noise`` (clipped alike), or
+    under ``floor``."""
     total = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in grads.values()])).item()
     f = min(1.0, 5.0 / total)
@@ -2691,7 +2844,7 @@ def adam_flips(grads: dict, weights: dict, noise: dict) -> dict:
     return {n: v.abs() < max(
         ADAM_FLIP_SHARE * (top if zero_in_exact_arithmetic(n)
                            else v.abs().max().item()),
-        F32_NOISE_MARGIN * f * noise[n]) for n, v in u.items()}
+        F32_NOISE_MARGIN * f * noise[n], floor) for n, v in u.items()}
 
 
 def dropout_on_card(dev) -> dict:
@@ -2756,67 +2909,166 @@ def step_errors(got: dict, want: dict, flips: dict, lr: float) -> dict:
 
 
 def phase_train_parity(dev) -> dict:
-    """One SGD and one Adam step of ``hctr-tiny`` (f32, dropout 0) from the
-    same seeded weights on the card and on the CPU, and on the CPU with
-    f64 activations (the reference): the card's loss, gradients, new
-    parameters and new running statistics lie within the ``TRAIN_*_TOL``
-    tolerances of the reference, or within ``F32_NOISE_MARGIN`` times the
-    CPU's f32 distance from it where that is larger (a ReLU input within
-    f32 rounding of 0 flips between two f32 evaluations, which moves the
-    gradients of the layers below it by up to a few 1e-3 of their largest
-    value). Adam's first step moves each element by about lr * sign(u), so
-    the elements whose sign the f32 noise can turn (``adam_flips``) are
-    counted and held to 2 lr apart. Then dropout's properties on the
-    card."""
+    """``steps_parity`` of ``hctr-tiny`` (f32, dropout 0) from seeded
+    weights on a seeded batch, then dropout's properties on the card."""
     from handwritten_chinese_ocr_samples_torch.utils.weights import (
         init_state_dict)
     model, characters = tiny_trainee("cpu")
     weights = init_state_dict(model, torch.Generator().manual_seed(0))
     batch = parity_batch(len(characters) + 2)
-    tol = {"loss_rel": TRAIN_LOSS_TOL, "grad_of_max": TRAIN_GRAD_TOL,
-           "param_over_lr": TRAIN_PARAM_TOL, "stat": TRAIN_STAT_TOL}
-    out = {}
-    for kind, lr in PARITY_LR.items():
-        ref = one_step("cpu", kind, weights, batch, torch.float64)
-        cpu = one_step("cpu", kind, weights, batch)
-        card = one_step(dev, kind, weights, batch)
-        check(ref["skipped"] == cpu["skipped"] == card["skipped"] == 0.0,
-              f"train_parity {kind}: a step was skipped")
-        noise = {n: (cpu["grads"][n] - g).abs().max().item()
-                 for n, g in ref["grads"].items()}
-        flips = (adam_flips(ref["grads"], weights, noise) if kind == "Adam"
-                 else {})
-        err_card = step_errors(card, ref, flips, lr)
-        err_cpu = step_errors(cpu, ref, flips, lr)
-        bound = {k: max(t, F32_NOISE_MARGIN * err_cpu[k])
-                 for k, t in tol.items()}
-        for k, b in bound.items():
-            check(err_card[k] <= b, f"train_parity {kind}: {k} "
-                  f"{err_card[k]} over {b} (the CPU's f32: {err_cpu[k]})")
-        check(err_card["flip_prone_over_lr"] <= 2 * (1 + 1e-3),
-              f"train_parity {kind}: a flip-prone element moved "
-              f"{err_card['flip_prone_over_lr']} lr")
-        out[kind] = {"lr": lr, "loss_f64": ref["loss"],
-                     "loss_cpu": cpu["loss"], "loss_card": card["loss"],
-                     "grad_norm_f64": ref["grad_norm"],
-                     "grad_norm_card": card["grad_norm"],
-                     "card_vs_f64": err_card, "cpu_f32_vs_f64": err_cpu,
-                     "card_vs_cpu_f32": step_errors(card, cpu, flips, lr),
-                     "bound": bound}
+    out = steps_parity(dev, tiny_case(), weights, batch, "train_parity")
     out["dropout"] = dropout_on_card(dev)
     emit({"phase": "train_parity", "model": "hctr-tiny (f32, dropout 0)",
           "reference": "the port on the CPU, f64 activations",
-          "batch": PARITY_B, "width": PARITY_W, "tolerances": tol,
-          "f32_noise_margin": F32_NOISE_MARGIN,
+          "batch": PARITY_B, "width": PARITY_W,
+          "tolerances": PARITY_TOL, "f32_noise_margin": F32_NOISE_MARGIN,
           "adam_flip_share": ADAM_FLIP_SHARE, **out})
     return out
 
 
+def worst_gradient(got: dict, want: dict, scale: dict) -> dict:
+    """The gradient element of ``got`` furthest from ``want``'s, over
+    ``scale[name]``."""
+    worst = (-1.0, None, None)
+    for n, w in want["grads"].items():
+        diff = (got["grads"][n] - w).abs() / scale[n]
+        i = int(diff.argmax())
+        if diff.flatten()[i].item() > worst[0]:
+            worst = (diff.flatten()[i].item(), n, i)
+    err, n, i = worst
+    return {"name": n, "index": i, "err": err,
+            "got": float(got["grads"][n].flatten()[i]),
+            "want": float(want["grads"][n].flatten()[i])}
+
+
+def decision_flips(got: Decisions, want: Decisions) -> dict:
+    """Where ``got``'s forward chose otherwise than ``want``'s: the ReLU
+    inputs of the other sign and the pool windows with another element,
+    with how far ``got``'s ReLU inputs lie from ``want``'s and how close
+    to 0 (to a tie) each flipped choice was in ``want``, both over the
+    largest |input| of its call."""
+    relu_flips = pool_flips = 0
+    fwd = margin = 0.0
+    calls = []
+    for k, (x, y) in enumerate(zip(got.relu, want.relu)):
+        top = y.abs().max().item()
+        fwd = max(fwd, (x - y).abs().max().item() / top)
+        flip = (x > 0) != (y > 0)
+        if flip.any():
+            m = y[flip].abs().max().item() / top
+            relu_flips += int(flip.sum())
+            margin = max(margin, m)
+            calls.append({"relu_call": k, "flips": int(flip.sum()),
+                          "shape": list(y.shape), "margin_of_max": m})
+    for k, (i, j, y) in enumerate(zip(got.pool, want.pool, want.pool_in)):
+        flip = i != j
+        if flip.any():
+            flat = y.flatten(2)
+            gap = (flat.gather(2, i.flatten(2)) - flat.gather(
+                2, j.flatten(2))).abs().view(i.shape)[flip]
+            m = gap.max().item() / y.abs().max().item()
+            pool_flips += int(flip.sum())
+            margin = max(margin, m)
+            calls.append({"pool_call": k, "flips": int(flip.sum()),
+                          "shape": list(i.shape), "margin_of_max": m})
+    return {"relu_flips": relu_flips, "pool_flips": pool_flips,
+            "relu_inputs_err_of_max": fwd, "flip_margin_of_max": margin,
+            "calls": calls}
+
+
+def steps_parity(dev, case: ParityCase, weights: dict, batch: dict,
+                 what: str) -> dict:
+    """One SGD and one Adam step (``one_step``) of ``case`` from
+    ``weights`` on ``batch``, held against the same step on the CPU with
+    f64 activations (the reference):
+
+    * the card's f64 step within ``PARITY_TOL``;
+    * the card's f32 step: its loss and new running statistics within
+      ``bound`` (``PARITY_TOL``, or ``F32_NOISE_MARGIN`` times the CPU's
+      f32 distance from the reference where that is larger); every ReLU
+      input within ``FWD_TOL`` of the reference's largest at its call; and
+      each ReLU or pool that chose otherwise than the reference
+      (``decision_flips``) within ``FWD_TOL`` of 0 or of a tie there. Its
+      gradients and new parameters are reported beside the worst
+      gradient element, not held: one ReLU input within f32 rounding of 0
+      that flips passes or stops a gradient whole, and in a deep layer of
+      few positions that moves a tensor's gradients by percents;
+    * the card's f32 step with the reference's ReLU and pool choices
+      (``Decisions`` replayed) within ``bound`` in every metric, the CPU's
+      f32 step taking the same choices;
+    * the card's f32 step's loss, gradients and statistics within
+      ``bound`` of the same step replaying its own choices: the replay's
+      products and gathers compute what ``F.relu``, ``F.max_pool2d`` and
+      their backwards do (in other kernels, so to f32 rounding), so the
+      replayed step above also holds those.
+
+    Adam's first step moves each element by about lr * sign(u): the
+    elements whose sign the CPU's f32 noise can turn (``adam_flips``, or
+    |u| under 100 Adam eps, where lr * u / (|u| + eps) turns a 1e-5
+    relative change of u, the clip factor's f32 norm, into 1e-3 lr) are
+    counted and held to 2 lr apart."""
+    from handwritten_chinese_ocr_samples_torch.train import step as tstep
+    out = {}
+    for kind, lr in PARITY_LR.items():
+        ref = one_step("cpu", kind, case, weights, batch, torch.float64,
+                       record=True)
+        choices = ref["decisions"]
+        cpu = one_step("cpu", kind, case, weights, batch, replay=choices)
+        card64 = one_step(dev, kind, case, weights, batch, torch.float64)
+        card = one_step(dev, kind, case, weights, batch, record=True)
+        own = one_step(dev, kind, case, weights, batch,
+                       replay=card["decisions"])
+        replayed = one_step(dev, kind, case, weights, batch, replay=choices)
+        runs = (ref, cpu, card64, card, own, replayed)
+        check(all(r["skipped"] == 0.0 for r in runs),
+              f"{what} {kind}: a step was skipped")
+        noise = {n: (cpu["grads"][n] - g).abs().max().item()
+                 for n, g in ref["grads"].items()}
+        flips = (adam_flips(ref["grads"], weights, noise,
+                            100 * tstep.ADAM_EPS)
+                 if kind == "Adam" else {})
+        err = {name: step_errors(r, ref, flips, lr) for name, r in (
+            ("card_f64", card64), ("cpu_f32_replayed", cpu),
+            ("card_f32", card), ("card_f32_replayed", replayed))}
+        bound = {k: max(t, F32_NOISE_MARGIN * err["cpu_f32_replayed"][k])
+                 for k, t in PARITY_TOL.items()}
+        err["card_f32_vs_own_choices"] = step_errors(card, own, flips, lr)
+        for name, keys, tol in (("card_f64", PARITY_TOL, PARITY_TOL),
+                                ("card_f32_replayed", PARITY_TOL, bound),
+                                ("card_f32_vs_own_choices",
+                                 ("loss_rel", "grad_of_max", "stat"), bound),
+                                ("card_f32", ("loss_rel", "stat"), bound)):
+            for k in keys:
+                check(err[name][k] <= tol[k], f"{what} {kind}: {name} {k} "
+                      f"{err[name][k]} over {tol[k]}: {err}")
+            check(err[name]["flip_prone_over_lr"] <= 2 * (1 + 1e-3),
+                  f"{what} {kind}: {name}: a flip-prone element moved "
+                  f"{err[name]['flip_prone_over_lr']} lr")
+        flipped = decision_flips(card["decisions"], choices)
+        check(flipped["relu_inputs_err_of_max"] <= FWD_TOL
+              and flipped["flip_margin_of_max"] <= FWD_TOL,
+              f"{what} {kind}: the card's f32 forward: {flipped}")
+        top = max(g.abs().max().item() for g in ref["grads"].values())
+        scale = {n: top if zero_in_exact_arithmetic(n) else
+                 g.abs().max().item() for n, g in ref["grads"].items()}
+        worst = worst_gradient(card, ref, scale)
+        worst["replayed"] = float(
+            replayed["grads"][worst["name"]].flatten()[worst["index"]])
+        out[kind] = {"lr": lr, "loss_f64": ref["loss"],
+                     "loss_card": card["loss"],
+                     "grad_norm_f64": ref["grad_norm"],
+                     "grad_norm_card": card["grad_norm"], **err,
+                     "bound": bound, "card_f32_decisions": flipped,
+                     "card_f32_worst_gradient": worst}
+    return out
+
+
 def train_flops(model, batch: int, width: int, dev) -> float:
-    """Multiply-adds x 2 of one forward at ``(batch, width)``: the
+    """Multiply-adds x 2 of one forward at ``(batch, 128, width)``: the
     convolutions' from their output shapes, the SE gates' and the head's
-    from their weights; a train step is 3 times this (forward, and twice
-    that for the backward)."""
+    (``hctr``'s ``linear`` at every column, ``innovation``'s ``fc`` once an
+    image) from their weights; a train step is 3 times this (forward, and
+    twice that for the backward)."""
     from handwritten_chinese_ocr_samples_torch.models.hctr import (
         Conv, SELayer)
     total = [0.0]
@@ -2840,8 +3092,9 @@ def train_flops(model, batch: int, width: int, dev) -> float:
         for h in hooks:
             h.remove()
         model.train(was_training)
-    total[0] += 2.0 * logits.shape[0] * logits.shape[1] * \
-        model.linear.weight.numel()
+    head = model.linear if hasattr(model, "linear") else model.fc
+    total[0] += 2.0 * (logits.numel() // logits.shape[-1]) * \
+        head.weight.numel()
     return total[0]
 
 
@@ -3023,12 +3276,44 @@ def phase_train_full(dev) -> dict:
     return out
 
 
+_CHILDREN: list = []          # CLI runs started in the background
+
+
+def start_cli(argv: list, log: str) -> subprocess.Popen:
+    """``cli/train.py`` with ``argv`` in a subprocess, its output into
+    ``log``.out and ``log``.err; ``main`` kills it should the script stop
+    first."""
+    with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "handwritten_chinese_ocr_samples_torch.cli.train", *argv],
+            stdout=out, stderr=err, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def finish_cli(proc: subprocess.Popen, log: str
+               ) -> subprocess.CompletedProcess:
+    """Wait for ``start_cli``'s ``proc`` (``TRAIN_CLI_TIMEOUT`` seconds at
+    most) and read its output."""
+    try:
+        proc.wait(timeout=TRAIN_CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(f"{log}.out") as out, open(f"{log}.err") as err:
+        return subprocess.CompletedProcess(proc.args, proc.returncode,
+                                           out.read(), err.read())
+
+
 def phase_train_cli(dev) -> dict:
     """``cli/train.py`` as a user runs it, in a subprocess, once for each
     seed of ``JAX_CLI_ACC``: a warm start from the converted demo/hard
     weights and one epoch of demo/hard's 1200 training lines at batch 8,
-    then the trainer's test evaluation. The checkpoints carry the JAX
-    trainer's names, the mean test accuracy is within
+    then the trainer's test evaluation; the three seeds run together. The
+    checkpoints carry the JAX trainer's names, the mean test accuracy is
+    within
     ``TRAIN_CLI_ACC_TOL`` of the JAX CLI's mean over the same seeds, and
     the eval CLI (``cli/test.py -bm -dm greedy-search``) on seed 0's
     checkpoint gives ``1 - acc``."""
@@ -3044,16 +3329,17 @@ def phase_train_cli(dev) -> dict:
                      "test_img_id_gt.txt", "chars_list.txt"):
             os.symlink(os.path.abspath(os.path.join(DEMO_HARD, name)),
                        os.path.join(data, name))
+        runs = {}
+        t0 = time.perf_counter()
         for seed in JAX_CLI_ACC:
             out_dir = os.path.join(tmp, f"out{seed}")
             argv = ["-m", "hctr-tiny", "-d", data, "-re",
                     f"{DEMO_ASSETS}/hctr_tiny.pt", "-b", "8", "-ep", "1",
                     "--seed", str(seed), "--out-dir", out_dir]
-            t0 = time.perf_counter()
-            run = subprocess.run(
-                [sys.executable, "-m",
-                 "handwritten_chinese_ocr_samples_torch.cli.train", *argv],
-                capture_output=True, text=True, timeout=TRAIN_CLI_TIMEOUT)
+            log = os.path.join(tmp, f"cli{seed}")
+            runs[seed] = (argv, out_dir, log, start_cli(argv, log))
+        for seed, (argv, out_dir, log, proc) in runs.items():
+            run = finish_cli(proc, log)
             walls[seed] = time.perf_counter() - t0
             check(run.returncode == 0, f"train_cli seed {seed}: exit "
                   f"{run.returncode}: {run.stderr[-2000:]}")
@@ -3090,6 +3376,560 @@ def phase_train_cli(dev) -> dict:
            "tolerance": TRAIN_CLI_ACC_TOL, "eval_cli_cer_seed0": cer,
            "checkpoints_seed0": checkpoints, "wall_s": walls}
     emit({"phase": "train_cli", **out})
+    return out
+
+
+# ------------------------------------------------ classifier (innovation)
+def classify_trainee(dev, **kw):
+    """The full-width ``innovation`` at 7375 classes, f32 parameters, on
+    ``dev``."""
+    model, characters = get_model_info("innovation",
+                                       chars_list_file=CHARS_LIST, **kw)
+    return model.to(dev), characters
+
+
+def glyph_template(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A random glyph: 4-8 dark bars, across or down, on white."""
+    img = np.full((h, w), 255, dtype=np.uint8)
+    for _ in range(int(rng.integers(4, 9))):
+        ink = int(rng.integers(0, 80))
+        thick = int(rng.integers(2, max(3, h // 12)))
+        if rng.random() < 0.5:
+            y, x0 = int(rng.integers(0, h - thick)), int(rng.integers(0, w // 2))
+            img[y:y + thick, x0:int(rng.integers(x0 + w // 4, w + 1))] = ink
+        else:
+            x, y0 = int(rng.integers(0, w - thick)), int(rng.integers(0, h // 2))
+            img[y0:int(rng.integers(y0 + h // 4, h + 1)), x:x + thick] = ink
+    return img
+
+
+def noisy(rng: np.random.Generator, template: np.ndarray) -> np.ndarray:
+    """``template`` plus Gaussian pixel noise (sigma ``GLYPH_NOISE``)."""
+    return np.clip(template + rng.normal(0, GLYPH_NOISE, template.shape),
+                   0, 255).astype(np.uint8)
+
+
+def phase_classify_parity(dev) -> dict:
+    """``steps_parity`` of the full-width ``innovation`` (7375 classes,
+    dropout 0) at ``CLASSIFY_SIDE`` squares, b4, from seeded weights; then the
+    multiscale + spatial-attention variant's eval forward (seeded weights,
+    ``gamma`` 0.37, running statistics off identity) at 128x128, b2, f32 on
+    the card against the CPU within ``FWD_TOL`` of the largest logit."""
+    from handwritten_chinese_ocr_samples_torch.utils.weights import (
+        init_state_dict)
+    model, characters = classify_trainee("cpu")
+    weights = init_state_dict(model, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(PARITY_SEED)
+    side = CLASSIFY_SIDE
+    batch = {"images": rng.uniform(-1, 1, (CLASSIFY_PARITY_B, side, side, 1)
+                                   ).astype(np.float32),
+             "labels": rng.integers(0, len(characters) + 2,
+                                    CLASSIFY_PARITY_B).astype(np.int32)}
+    del model
+    out = steps_parity(dev, classify_case(), weights, batch,
+                       "classify_parity")
+
+    logits = {}
+    for where in ("cpu", dev):
+        model, _ = classify_trainee(where, use_multiscale=True,
+                                    use_spatial_attn=True)
+        state = seeded_state_dict(model, 3)
+        state["spatial_attn.gamma"] = torch.tensor([0.37])
+        g = torch.Generator().manual_seed(4)
+        state.update({k: torch.rand(v.shape, generator=g) + 0.5
+                      for k, v in state.items() if k.endswith("running_var")})
+        model.load_state_dict(state)
+        x = torch.from_numpy(np.random.default_rng(5).uniform(
+            -1, 1, (CLASSIFY_FWD_B, 128, 128, 1)).astype(np.float32))
+        with torch.no_grad():
+            logits[str(where)] = model.eval()(x.to(where)).cpu()
+        del model
+    want = logits["cpu"]
+    fwd_err = (logits[str(dev)] - want).abs().max().item() / \
+        want.abs().max().item()
+    check(fwd_err <= FWD_TOL, f"classify_parity: multiscale + attention "
+          f"forward {fwd_err} of the largest logit from the CPU's")
+    emit({"phase": "classify_parity",
+          "model": "innovation (7375 classes, f32, dropout 0)",
+          "reference": "the port on the CPU, f64 activations",
+          "batch": CLASSIFY_PARITY_B, "side": side,
+          "tolerances": PARITY_TOL, "f32_noise_margin": F32_NOISE_MARGIN,
+          **out, "multiscale_attn_eval_forward": {
+              "batch": CLASSIFY_FWD_B, "side": 128, "dtype": "float32",
+              "err_of_max_logit": fwd_err, "tolerance": FWD_TOL}})
+    return out
+
+
+def write_glyph_set(root: str, labels: list, n: int, seed: int) -> None:
+    """``n`` seeded 128x128 glyph PNGs under ``root/train`` (one fixed
+    random glyph for each of ``labels`` plus pixel noise, classes drawn
+    uniformly), the manifest and ``chars_list.txt`` (``CHARS_LIST``'s)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    templates = [glyph_template(rng, 128, 128) for _ in labels]
+    os.makedirs(os.path.join(root, "train"))
+    rows = []
+    for i in range(n):
+        k = int(rng.integers(len(labels)))
+        name = f"g{i:05d}.png"
+        cv2.imwrite(os.path.join(root, "train", name),
+                    noisy(rng, templates[k]))
+        rows.append(f"{name},{labels[k]}\n")
+    with open(os.path.join(root, "train_img_id_gt.txt"), "w",
+              encoding="utf-8") as f:
+        f.writelines(rows)
+    shutil.copy(CHARS_LIST, os.path.join(root, "chars_list.txt"))
+
+
+def phase_classify_full(dev) -> dict:
+    """``CLASSIFY_STEPS`` train steps of the full-width ``innovation``
+    (7375 classes, bf16 compute, f32 parameters, Adam, dropout on) at
+    128x128, b64, through the port's ``Trainer`` (its loader of glyph PNGs
+    written here, its batch preparation overlapped with the step, its
+    cross-entropy step): ms a step, images/s and the share of the bf16
+    peak over steps 11-40 (CUDA events at the step boundaries), peak
+    memory, the device's idle share and top kernels over the last
+    ``CLASSIFY_REPLAYED`` batches taken again under torch.profiler (busy
+    time against the same batches' unprofiled time). Every loss is finite,
+    no step is skipped, the loss falls from step 1 to the last, and none of
+    K1-K4 or I1 launches."""
+    import tempfile
+    from handwritten_chinese_ocr_samples_torch.ops.dropout import fold_in
+    from handwritten_chinese_ocr_samples_torch.train.trainer import (
+        Trainer, TrainerConfig)
+    steps, b = CLASSIFY_STEPS, CLASSIFY_RECIPE["batch_size"]
+    with tempfile.TemporaryDirectory() as data:
+        labels = load_chars_list(CHARS_LIST)[:CLASSIFY_CLASSES]
+        t0 = time.perf_counter()
+        write_glyph_set(data, labels, steps * b, seed=0)
+        write_s = time.perf_counter() - t0
+        model, characters = get_model_info("innovation", data_dir=data,
+                                           dtype=torch.bfloat16)
+        n_params = sum(p.numel() for p in model.parameters())
+        trainer = Trainer(TrainerConfig(data=data, model_type="innovation",
+                                        device=str(dev), **CLASSIFY_RECIPE),
+                          model, characters)
+        seed = fold_in(trainer.dropout_seed, 0)  # epoch 0's dropout seed
+        loader = trainer._loader("train", shuffle=True)
+        loader.set_epoch(0)
+        kept = []
+
+        def live():
+            it = trainer._device_iter(loader)
+            for i, batch in zip(range(steps), it):
+                if i >= steps - CLASSIFY_REPLAYED:
+                    kept.append(batch)
+                yield batch
+            it.close()
+
+        reset_launches()
+        reset_i1()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics, events = timed_steps(trainer, live(), seed)
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    accs = [float(m["acc"]) for m in metrics]
+    skipped = sum(float(m["skipped"]) for m in metrics)
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"classify_full: losses {losses}")
+    check(skipped == 0, f"classify_full: {skipped:.0f} steps skipped")
+    check(losses[-1] < losses[0], f"classify_full: loss {losses[0]} at "
+          f"step 1, {losses[-1]} at step {steps}")
+    ms = steps_ms(events)
+    timed_s = events[CLASSIFY_TIMED_FROM].elapsed_time(events[steps]) / 1e3
+    images = b * (steps - CLASSIFY_TIMED_FROM)
+    flops = 3 * train_flops(trainer.model, b, 128, dev)
+    replay_ms = events[steps - CLASSIFY_REPLAYED].elapsed_time(events[steps])
+    busy_ms, n_launch, top = profile_steps(trainer, kept, seed)
+    torch.cuda.synchronize()
+    launched = {**launch_counts(), **{f"int8_{k}": v
+                                      for k, v in i1_counts().items()}}
+    check(not any(launched.values()),
+          f"classify_full: K1-K4 or I1 launched in training: {launched}")
+    out = {"model": "innovation (bf16 compute, f32 parameters, dropout on)",
+           "params": n_params, "classes": len(characters) + 2,
+           "glyph_classes": CLASSIFY_CLASSES, "side": 128,
+           "recipe": CLASSIFY_RECIPE, "steps": steps,
+           "glyph_write_s": write_s,
+           "loss_step_1": losses[0], f"loss_step_{steps}": losses[-1],
+           "losses": losses, "train_acc_last_5": accs[-5:],
+           "skipped": skipped,
+           "ms_per_step_median": statistics.median(ms[CLASSIFY_TIMED_FROM:]),
+           "images_per_s": images / timed_s,
+           "timed_steps": f"{CLASSIFY_TIMED_FROM + 1}-{steps}",
+           "wall_s_all_steps": wall_s,
+           "gmac_per_image_forward": flops / 3 / 2 / b / 1e9,
+           "train_flops_per_step": flops,
+           "bf16_peak_share": flops * (steps - CLASSIFY_TIMED_FROM)
+           / timed_s / BF16_OPS_PER_S,
+           "peak_memory_bytes": peak,
+           "profiled_steps": CLASSIFY_REPLAYED,
+           "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+           "device_idle_share": (1 - busy_ms / replay_ms if busy_ms > 0
+                                 else "not measured"),
+           "unprofiled_ms_same_steps": replay_ms,
+           "kernel_launches_profiled": n_launch, "top_kernels": top,
+           "k1_k4_i1_launches": launched}
+    emit({"phase": "classify_full", **out})
+    return out
+
+
+def write_gnt_zip(path: str, writers: list) -> None:
+    """HWDB1.x GNT records, one ``.gnt`` member a writer, each writer a
+    list of ``(GB tag code, (H, W) uint8 glyph)`` (`gnt2png.py:38-41`)."""
+    import struct
+    import zipfile
+    with zipfile.ZipFile(path, "w") as zf:
+        for i, samples in enumerate(writers):
+            payload = b""
+            for tag, img in samples:
+                h, w = img.shape
+                payload += (struct.pack("<I", 10 + h * w)
+                            + struct.pack(">H", tag)
+                            + struct.pack("<HH", w, h) + img.tobytes())
+            zf.writestr(f"{i:03d}-f.gnt", payload)
+
+
+def classify_misses(trainer, model, phase: str) -> tuple:
+    """``model``'s top-1 accuracy in eval mode on ``phase`` and its misses,
+    ``"true -> predicted"`` character counts."""
+    model.eval()
+    misses, right, total = collections.Counter(), 0, 0
+    for batch in trainer._loader(phase, shuffle=False):
+        with torch.no_grad():
+            pred = model(trainer._to_device(batch["images"])).argmax(-1)
+        truth = trainer.class_ids(batch["labels"])
+        for p, t, label in zip(pred.tolist(), truth.tolist(),
+                               batch["labels"]):
+            right += p == t
+            total += 1
+            if p != t:
+                misses[f"{label} -> {trainer.codec.characters[p]}"] += 1
+    return right / total, dict(misses)
+
+
+def bn_diagnosis(dev, data: str, checkpoint: str) -> dict:
+    """Where a trained classifier's eval loses whole classes: the test
+    accuracy and misses of ``checkpoint`` in eval mode with its running
+    statistics, then with running statistics gathered anew as the mean of
+    the batch statistics over the training split in train mode, once with
+    dropout on (as training gathers them) and once with the same weights
+    at dropout 0."""
+    from handwritten_chinese_ocr_samples_torch.ops.dropout import fold_in
+    from handwritten_chinese_ocr_samples_torch.train.trainer import (
+        Trainer, TrainerConfig)
+    model, characters = get_model_info("innovation", data_dir=data,
+                                       dtype=torch.bfloat16)
+    trainer = Trainer(TrainerConfig(data=data, model_type="innovation",
+                                    batch_size=CLASSIFY_CLI_BATCH,
+                                    device=str(dev), resume=checkpoint),
+                      model, characters)
+    weights = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    out = {"checkpoint": classify_misses(trainer, trainer.model, "test")}
+    quiet, _ = get_model_info("innovation", data_dir=data,
+                              dtype=torch.bfloat16, stage_drop=(0.0,) * 4,
+                              block_drop=0.0, head_drop=0.0)
+    quiet.to(dev)
+    for name, m in (("regathered_dropout_on", trainer.model),
+                    ("regathered_dropout_off", quiet)):
+        m.load_state_dict(weights)
+        m.train()
+        sums, n = None, 0
+        for i, batch in enumerate(trainer._loader("train", shuffle=False)):
+            with torch.no_grad():
+                m(trainer._to_device(batch["images"]),
+                  dropout_seed=fold_in(trainer.dropout_seed, i))
+            stats = [torch.stack(bn.batch_stats) for bn in m.batch_norms()]
+            sums = stats if sums is None else [a + b for a, b in
+                                               zip(sums, stats)]
+            n += 1
+        for bn, st in zip(m.batch_norms(), sums):
+            bn.running_mean.copy_(st[0] / n)
+            bn.running_var.copy_(st[1] / n)
+        out[name] = classify_misses(trainer, m, "test")
+    return {k: {"test_acc": a, "misses": v} for k, (a, v) in out.items()}
+
+
+def start_classify_cli(dev) -> dict:
+    """The first part of ``phase_classify_cli``, which takes what this
+    returns: the glyph set, its prep, and ``cli/train.py`` started in the
+    background."""
+    import tempfile
+    from handwritten_chinese_ocr_samples_torch.data.prep import flow, gnt
+    rng = np.random.default_rng(CLASSIFY_CLI_SEED)
+    codes = CLASSIFY_CLI_CODES
+    templates = {tag: glyph_template(rng, int(rng.integers(56, 100)),
+                                     int(rng.integers(56, 100)))
+                 for tag in codes}
+    tmp = tempfile.mkdtemp()
+    data = os.path.join(tmp, "data")
+    manifests, extracted = {}, {}
+    for phase, writers in (("train", CLASSIFY_CLI_WRITERS),
+                           ("test", CLASSIFY_CLI_TEST_WRITERS)):
+        zp = os.path.join(tmp, f"hwdb_{phase}.zip")
+        write_gnt_zip(zp, [[(tag, noisy(rng, templates[tag]))
+                            for tag in codes] for _ in range(writers)])
+        folder = os.path.join(data, phase)
+        os.makedirs(folder)
+        extracted[phase] = gnt.gnt2png(zp, 128, folder)
+        hex_manifest = os.path.join(tmp, f"{phase}_codes.txt")
+        found = flow.generate_char_img_gt(folder, hex_manifest)
+        check(sorted(found) == sorted(f"{t:X}" for t in codes),
+              f"classify_cli: {phase} codes {found}")
+        manifests[phase] = os.path.join(tmp, f"{phase}_chars.txt")
+        with open(hex_manifest, encoding="utf-8") as f, \
+                open(manifests[phase], "w", encoding="utf-8") as g:
+            for line in f:
+                path, code = line.rstrip("\n").rsplit(",", 1)
+                g.write(f"{path},{flow.map_code_to_char(code)}\n")
+    check(extracted == {"train": CLASSIFY_CLI_WRITERS * len(codes),
+                        "test": CLASSIFY_CLI_TEST_WRITERS * len(codes)},
+          f"classify_cli: extracted {extracted}")
+    flow.build_split([manifests["train"]], data, val_fraction=0.1,
+                     seed=42, test_manifest=manifests["test"])
+    flow.build_vocabulary([f"{t:X}" for t in codes],
+                          os.path.join(data, "chars_list.txt"))
+    out_dir, trace = os.path.join(tmp, "out"), os.path.join(tmp, "trace")
+    argv = ["-m", "innovation", "-d", data, "-b",
+            str(CLASSIFY_CLI_BATCH), "--seed", "0", "--device", str(dev)]
+    log = os.path.join(tmp, "cli")
+    proc = start_cli(argv + ["-ep", str(CLASSIFY_CLI_EPOCHS), "--out-dir",
+                             out_dir, "-pf", str(CLASSIFY_CLI_PRINT),
+                             "--profile", trace], log)
+    return {"tmp": tmp, "data": data, "argv": argv, "extracted": extracted,
+            "out_dir": out_dir, "trace": trace, "log": log, "proc": proc,
+            "t0": time.perf_counter()}
+
+
+def phase_classify_cli(dev, started: dict) -> dict:
+    """The user's path for the classifier, on a seeded glyph set:
+    ``CLASSIFY_CLI_CODES``' 16 classes, one fixed random glyph each (56-99
+    px a side) plus pixel noise, written as GNT zips (one ``.gnt`` a
+    writer: ``CLASSIFY_CLI_WRITERS`` writers to train, 8 to test); the
+    port's ``gnt2png`` at 128, ``generate_char_img_gt``, each manifest's
+    codes mapped to their characters (``map_code_to_char``: the trainer
+    reads ``name,character`` rows), ``build_split`` (10% to val, seed 42)
+    and ``build_vocabulary``; then ``cli/train.py -m innovation`` in a
+    subprocess (``start_classify_cli``, so that phases which time nothing
+    run meanwhile) for ``CLASSIFY_CLI_EPOCHS`` epochs at b32 with
+    ``--profile``
+    and the train loss printed every ``CLASSIFY_CLI_PRINT`` steps: the test
+    accuracy after the last epoch at least ``CLASSIFY_CLI_ACC``, the bar of
+    the JAX package's ``test_trainer_classification_e2e``; a trace with the
+    card's kernels written; ``--test -tv`` on the best checkpoint and on
+    the latest printing their epochs' accuracies, and the latest's
+    confusions (true -> predicted character, with the class ids); then
+    ``bn_diagnosis`` of the latest. The test glyphs of a class differ by
+    pixel noise alone, so a class is read right or wrong whole."""
+    import io
+    import re
+    from handwritten_chinese_ocr_samples_torch.cli import train as train_cli
+    from handwritten_chinese_ocr_samples_torch.data.prep import flow
+    codes = CLASSIFY_CLI_CODES
+    tmp, data, argv = started["tmp"], started["data"], started["argv"]
+    out_dir, trace = started["out_dir"], started["trace"]
+    extracted = started["extracted"]
+    try:
+        run = finish_cli(started["proc"], started["log"])
+        wall = time.perf_counter() - started["t0"]
+        check(run.returncode == 0, f"classify_cli: exit {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+        accs = [float(a) for a in re.findall(
+            r"epoch \d+: test acc ([0-9.]+)", run.stdout)]
+        check(len(accs) == CLASSIFY_CLI_EPOCHS,
+              f"classify_cli: {run.stdout[-2000:]}")
+        losses = {}
+        for e, loss in re.findall(r"Epoch \[(\d+)\]\[\d+/\d+\] .* loss "
+                                  r"(\S+) \(", run.stdout):
+            losses.setdefault(int(e), []).append(float(loss))
+        traces = os.listdir(trace)
+        check(len(traces) == 1 and traces[0].endswith(".pt.trace.json"),
+              f"classify_cli: trace files {traces}")
+        with open(os.path.join(trace, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        check(kernels > 0, "classify_cli: the trace holds no kernel")
+        # the trainer's best: its first epoch at the highest accuracy,
+        # kept under the JAX trainer's best-checkpoint name
+        best = accs.index(max(accs))
+        kept = f"innovation_{best + 1}ep_{accs[best]:.4f}acc_checkpoint"
+        checkpoints = sorted(os.listdir(out_dir))
+        check(kept in checkpoints and "innovation_checkpoint" in checkpoints,
+              f"classify_cli: checkpoints {checkpoints}")
+        tested, confused = {}, {}
+        for name in (kept, "innovation_checkpoint"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                train_cli.main(argv + ["--test", "-tv", "-re",
+                                       os.path.join(out_dir, name)])
+            tested[name] = re.findall(r"Test acc: ([0-9.]+)", buf.getvalue())
+            pairs = re.findall(r"PRE: (.*)\nTRU: (.*)", buf.getvalue())
+            check(len(pairs) == extracted["test"],
+                  f"classify_cli: {len(pairs)} PRE/TRU pairs")
+            # the trainer's class ids: chars_list.txt's order, from 1
+            chars = flow.map_codes_to_chars([f"{t:X}" for t in codes])
+            confused[name] = dict(collections.Counter(
+                f"{t} ({codes[chars.index(t)]:X}, id {chars.index(t) + 1})"
+                f" -> {p}" for p, t in pairs if p != t))
+        bn = bn_diagnosis(dev, data,
+                          os.path.join(out_dir, "innovation_checkpoint"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(accs[-1] >= CLASSIFY_CLI_ACC, f"classify_cli: test accuracy "
+          f"{accs} by epoch, the last under {CLASSIFY_CLI_ACC}; confusions "
+          f"{confused}; train losses {losses}")
+    check(tested == {kept: [f"{accs[best]:.4f}"],
+                     "innovation_checkpoint": [f"{accs[-1]:.4f}"]},
+          f"classify_cli: --test printed {tested}, the epochs {accs}")
+    out = {"argv": " ".join(["cli.train", *argv]).replace(tmp, "<tmp>"),
+           "epochs": CLASSIFY_CLI_EPOCHS, "classes": len(codes),
+           "extracted": extracted, "test_acc_by_epoch": accs,
+           "acc_bar": CLASSIFY_CLI_ACC, "best_epoch": best + 1,
+           "train_loss_by_epoch": losses,
+           "test_cli_acc": {k: float(v[0]) for k, v in tested.items()},
+           "test_confusions": confused, "bn_statistics": bn,
+           "trace_kernel_events": kernels, "checkpoints": checkpoints,
+           "wall_s": wall}
+    emit({"phase": "classify_cli", **out})
+    return out
+
+
+def phase_profile_eval(dev) -> dict:
+    """``cli/test.py --profile DIR -bm -b 8 -dm beam-search`` (the device
+    beam without an LM: K1) on the first ``PROFILE_EVAL_LINES`` test lines
+    of demo/hard, beside the same command unprofiled: equal CER and texts,
+    K1 launched, and the trace names K1's kernel. Returns K1's launches in
+    the profiled run."""
+    import io
+    import tempfile
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    with open(os.path.join(DEMO_HARD, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        lines = [line for line in f if line.strip()][:PROFILE_EVAL_LINES]
+    with tempfile.TemporaryDirectory() as tmp:
+        split = os.path.join(tmp, "split")
+        os.makedirs(os.path.join(split, "test"))
+        shutil.copy(os.path.join(DEMO_HARD, "chars_list.txt"), split)
+        with open(os.path.join(split, "test_img_id_gt.txt"), "w",
+                  encoding="utf-8") as f:
+            f.writelines(lines)
+        for line in lines:
+            name = line.split(",", 1)[0]
+            os.symlink(os.path.abspath(os.path.join(DEMO_HARD, "test", name)),
+                       os.path.join(split, "test", name))
+        argv = ["-m", "hctr-tiny", "-f", f"{DEMO_ASSETS}/hctr_tiny.pt",
+                "-i", split, "-bm", "-b", "8", "-dm", "beam-search", "-tv",
+                "-d", str(dev)]
+        trace = os.path.join(tmp, "trace")
+        runs = {}
+        for name, extra in (("plain", []), ("profiled", ["--profile",
+                                                         trace])):
+            buf = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                result = eval_cli.main(argv + extra)
+            runs[name] = {"cer": result, "wall_s": time.perf_counter() - t0,
+                          "texts": [ln for ln in buf.getvalue().splitlines()
+                                    if ln.startswith("PRE: ")],
+                          "k1_launches": k1.launches}
+        files = os.listdir(trace)
+        check(len(files) == 1, f"profile_eval: trace files {files}")
+        size = os.path.getsize(os.path.join(trace, files[0]))
+        with open(os.path.join(trace, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k1_events = sum("topk_logsoftmax_kernel" in n for n in kernels)
+    plain, prof = runs["plain"], runs["profiled"]
+    check(prof["cer"] == plain["cer"] and prof["texts"] == plain["texts"]
+          and len(prof["texts"]) == PROFILE_EVAL_LINES,
+          f"profile_eval: CER {prof['cer']} vs {plain['cer']}")
+    check(prof["k1_launches"] > 0 and k1_events == prof["k1_launches"],
+          f"profile_eval: K1 launched {prof['k1_launches']}, "
+          f"{k1_events} in the trace")
+    out = {"argv": " ".join(argv), "lines": PROFILE_EVAL_LINES,
+           "cer": prof["cer"], "cer_unprofiled": plain["cer"],
+           "wall_s": {n: r["wall_s"] for n, r in runs.items()},
+           "trace_bytes": size, "trace_kernel_events": len(kernels),
+           "k1_launches": prof["k1_launches"],
+           "k1_kernel_events": k1_events}
+    emit({"phase": "profile_eval", **out})
+    return prof["k1_launches"]
+
+
+def phase_pth(dev) -> dict:
+    """A reference ``.pth.tar`` (``{epoch, state_dict, best_acc,
+    optimizer}``, the state dict under DDP's ``module.``), written from
+    ``hctr_tiny.pt`` by ``tests/torch_reference_layout.py``'s inverse map:
+    ``cli/test.py -f x.pth.tar -bm -b 10 -tv -dm greedy-search`` gives the
+    150 texts and the CER of ``-f hctr_tiny.pt``, and ``cli/export.py -f
+    x.pth.tar -w 512 -b 10`` a bundle with the same weights whose programs
+    serve the 150 lines to the ``hctr_tiny.pt`` bundle's texts."""
+    import importlib.util
+    import io
+    import tempfile
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    # by path: a package installed on the machine may own the name `tests`
+    spec = importlib.util.spec_from_file_location("torch_reference_layout", (
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "torch_reference_layout.py")))
+    layout = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(layout)
+    tiny = os.path.join(DEMO_ASSETS, "hctr_tiny.pt")
+    chars_file = os.path.join(DEMO_HARD, "chars_list.txt")
+    files, paths, truth, _ = demo_hard_split()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "hctr-tiny_checkpoint.pth.tar")
+        ref = layout.reference_state_dict(torch.load(tiny,
+                                                     weights_only=True))
+        torch.save({"epoch": 142, "best_acc": 0.9, "optimizer": {},
+                    "state_dict": {f"module.{k}": v for k, v in ref.items()}},
+                   pth)
+        texts, cers, bundles = {}, {}, {}
+        for name, spec in (("pt", tiny), ("pth_tar", pth)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cers[name] = eval_cli.main(
+                    ["-m", "hctr-tiny", "-f", spec, "-i", DEMO_HARD, "-bm",
+                     "-b", "10", "-tv", "-dm", "greedy-search", "-d",
+                     str(dev)])
+            texts[name] = [ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("PRE: ")]
+            out_dir = os.path.join(tmp, f"bundle_{name}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = export_cli.main(
+                    ["-m", "hctr-tiny", "-f", spec, "-o", out_dir, "-w",
+                     str(WIDTHS[0]), "-b", "10", "-cl", chars_file,
+                     "--device", str(dev)])
+            bundles[name] = bundle_programs(out_dir, res["model"], dev)
+        check(len(texts["pt"]) == len(files) and texts["pth_tar"] ==
+              texts["pt"] and cers["pth_tar"] == cers["pt"],
+              f"pth: eval texts differ ({len(texts['pt'])} lines, CER "
+              f"{cers})")
+        (fns, weights), (fns_p, weights_p) = bundles["pt"], bundles["pth_tar"]
+        check(weights.keys() == weights_p.keys() and all(
+            torch.equal(weights[k], weights_p[k]) for k in weights),
+              "pth: the bundles' weights differ")
+        model, characters = get_model_info("hctr-tiny",
+                                           chars_list_file=chars_file)
+        codec = CTCCodec(characters)
+        engine = ServingEngine(model, torch.load(tiny, weights_only=True),
+                               codec, widths=(WIDTHS[0],), device=dev)
+        items = [engine.preprocess_bucketed(p) for p in paths]
+        served = {name: serve_programs(f, w, codec, items, 10)[0]
+                  for name, (f, w) in bundles.items()}
+        check(served["pth_tar"] == served["pt"], "pth: the bundles' texts "
+              "differ")
+        out = {"eval_lines": len(texts["pt"]), "eval_cer": cers["pth_tar"],
+               "eval_texts_equal": True, "bundle_weights_equal": True,
+               "bundle_lines": len(served["pt"]),
+               "bundle_cer": cer(served["pth_tar"], truth),
+               "bundle_texts_equal": True}
+    emit({"phase": "pth", **out})
     return out
 
 
@@ -3503,6 +4343,16 @@ def phase_ngram_train() -> None:
 
 
 def main() -> int:
+    try:
+        return smoke()
+    finally:
+        for proc in _CHILDREN:      # a phase failed with a CLI running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def smoke() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card only")
@@ -3542,6 +4392,14 @@ def main() -> int:
         phase_lm_train(dev)
         phase_ngram_train()
         return 0
+    if "--classify" in sys.argv[1:]:  # the classifier, --profile and .pth
+        phase_classify_full(dev)
+        started = start_classify_cli(dev)
+        phase_classify_parity(dev)
+        phase_profile_eval(dev)
+        phase_pth(dev)
+        phase_classify_cli(dev, started)
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 and I1 alone, times first
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -3571,7 +4429,14 @@ def main() -> int:
     int8_paths.update(phase_export(dev, codec, state))
     phase_train_parity(dev)
     train = phase_train_full(dev)
+    classify = phase_classify_full(dev)
+    # the CLI runs, and the phases that time nothing, go together
+    started = start_classify_cli(dev)
     phase_train_cli(dev)
+    phase_classify_parity(dev)
+    profiled_k1 = phase_profile_eval(dev)
+    phase_pth(dev)
+    phase_classify_cli(dev, started)
     paths["lm_train_ss"] = phase_lm_train(dev)
     phase_ngram_train()
     # the kernels' launches on the skip route's main paths
@@ -3579,7 +4444,9 @@ def main() -> int:
             for name in launch_counts()}
     emit({"phase": "launches", "beam": {"topk_logsoftmax": launches},
           "lm_full_search": lm_counts, **paths, "skip_route": skip,
-          "int8_conv": int8_paths, "training": train["k1_k4_launches"]})
+          "int8_conv": int8_paths, "training": train["k1_k4_launches"],
+          "classify_training": classify["k1_k4_i1_launches"],
+          "profile_eval_topk_logsoftmax": profiled_k1})
     ss_err = {name: max([t["max_abs_err"] for key, t in ss_kernels.items()
                          if key.split("@")[0] == name] or [0.0])
               for name in skip}

@@ -8,7 +8,9 @@
 
 ``-m`` takes a torch state dict saved with ``torch.save`` (for example
 ``utils.weights.flax_to_torch`` of a JAX checkpoint, converted where JAX is
-installed) or ``seed:<n>``, random full-size weights from a seed. ``-tp``
+installed), a reference ``.pth``/``.pth.tar`` checkpoint
+(``compat/torch_convert.py``) or ``seed:<n>``, random full-size weights
+from a seed. ``-tp``
 takes an LM directory (``config.json``, ``dict.txt``, ``weights.pt``) or
 ``seed:<n>``, the ``char-512x6`` LM with random weights over the ``-cl``
 characters; ``-dm beam-search -uts -tp ...`` serves the LM-fused device
@@ -116,13 +118,17 @@ def build_argparser():
 
 
 def load_weights(spec: str, model):
-    """``seed:<n>`` -> seeded random weights; else a ``torch.save``d state
+    """``seed:<n>`` -> seeded random weights; a reference ``.pth`` or
+    ``.pth.tar`` -> its converted state dict; else a ``torch.save``d state
     dict or a checkpoint of the port's trainer."""
     import torch
     from ..train.checkpoint import state_dict_of
     from ..utils.weights import seeded_state_dict
     if spec.startswith("seed:"):
         return seeded_state_dict(model, int(spec.split(":", 1)[1]))
+    if spec.endswith((".pth", ".pth.tar")):
+        from ..compat.torch_convert import convert_checkpoint
+        return convert_checkpoint(spec)
     if os.path.isdir(spec):
         raise ValueError(
             f"{spec} is a directory (an orbax checkpoint?): the port reads "

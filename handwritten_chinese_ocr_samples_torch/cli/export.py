@@ -7,7 +7,8 @@ bundles of the recognizer and the char LM (``serve/export.py``).
         [-tp <lm dir | seed:<n>>] [--device cuda]
 
 ``-f`` takes what ``cli/deploy.py -m`` takes: a ``torch.save``d state dict,
-a checkpoint of the port's trainer, or ``seed:<n>``. The programs are traced
+a checkpoint of the port's trainer, a reference ``.pth``/``.pth.tar``
+checkpoint, or ``seed:<n>``. The programs are traced
 on ``--device`` and run there only. ``--int8-calib`` calibrates the conv
 sites on the first 16 images of a folder at the first width and exports the
 int8 forward with the scales baked in.
@@ -16,10 +17,6 @@ int8 forward with the scales baked in.
 from __future__ import annotations
 
 import argparse
-import os
-
-_PTH = ("reading the reference's .pth/.pth.tar checkpoints "
-        "(compat/torch_convert.py, ROADMAP.md queue 1, item 9.4)")
 
 
 def build_argparser():
@@ -30,7 +27,8 @@ def build_argparser():
                       choices=["hctr", "hctr-tiny"], help="model tag")
     args.add_argument("-f", "--model-file", type=str, default="",
                       metavar="PATH", help="torch state dict (.pt), a "
-                      "checkpoint of the port's trainer, or 'seed:<n>'")
+                      "checkpoint of the port's trainer, a reference "
+                      ".pth/.pth.tar, or 'seed:<n>'")
     args.add_argument("-o", "--out-dir", type=str, default="exported",
                       help="output directory")
     args.add_argument("-w", "--widths", type=str, default="512,1024,1600",
@@ -66,8 +64,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.model_file and not args.tfm_path:
         parser.error("nothing to export: pass -f and/or -tp")
-    if args.model_file.endswith((".pth", ".pth.tar")):
-        parser.error(f"not ported yet: {_PTH}")
     import torch
     from ..core.codec import load_chars_list
 

@@ -22,9 +22,13 @@ surface of the reference's `test.py:24-106`).
 
 ``-f`` takes the port's state dict (``torch.save``, e.g. ``utils.weights.
 flax_to_torch`` of a JAX checkpoint), a checkpoint of the port's trainer
-(``<model>_checkpoint``) or ``seed:<n>``; ``-d cpu`` runs on the CPU. The flags of surfaces the port does not have yet stop with an error
-that names their ROADMAP item, as a reference ``.pth``/``.pth.tar`` file
-does.
+(``<model>_checkpoint``), a reference ``.pth``/``.pth.tar`` checkpoint
+(``compat/torch_convert.py``) or ``seed:<n>``; ``-d cpu`` runs on the
+CPU. ``--profile DIR`` writes a ``torch.profiler`` trace of the run (with
+``-gs``, of the first grid point) into DIR. ``-m innovation`` stops with an
+error, as the JAX CLI fails on the classifier's ``(B, classes)`` logits:
+``cli/train.py -m innovation --test`` evaluates it. ``-dp`` stops with an
+error that names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,11 +41,7 @@ import numpy as np
 _UNPORTED = {
     "data_parallel": (0, "data-parallel eval over several cards "
                          "(ROADMAP.md queue 1, item 8)"),
-    "profile": ("", "the profiler trace of utils/profiling.py (ROADMAP.md "
-                    "queue 1, item 9)"),
 }
-_PTH = ("reading the reference's .pth/.pth.tar checkpoints "
-        "(compat/torch_convert.py, ROADMAP.md queue 1, item 9)")
 
 
 def build_argparser():
@@ -49,12 +49,14 @@ def build_argparser():
                                                  "(PyTorch)")
     args = parser.add_argument_group("Options")
     args.add_argument("-m", "--model-type", dest="model_type", type=str,
-                      required=True, choices=["hctr", "hctr-tiny"],
+                      required=True,
+                      choices=["hctr", "hctr-tiny", "innovation"],
                       help="target model for different languages/scenarios")
     args.add_argument("-f", "--model-file", dest="model_file", type=str,
                       metavar="PATH", required=True,
                       help="torch state dict (.pt), a checkpoint of the "
-                           "port's trainer, or 'seed:<n>'")
+                           "port's trainer, a reference .pth/.pth.tar, or "
+                           "'seed:<n>'")
     args.add_argument("-i", "--input", dest="input", type=str,
                       metavar="PATH", required=True,
                       help="path to input image or testset")
@@ -137,6 +139,9 @@ def build_argparser():
                       default=None, help="explicit chars_list.txt path")
     args.add_argument("--host-beam", dest="host_beam", action="store_true",
                       help="force the host beam-search decoder")
+    args.add_argument("--profile", default="", metavar="DIR",
+                      help="write a torch.profiler trace of the run into "
+                           "DIR (with -gs: first grid point only)")
     # hyper-param grid search (`test.py:92-105`)
     args.add_argument("-gs", "--grid-search", action="store_true",
                       help="grid search lm_panelty and len_bonus")
@@ -151,7 +156,6 @@ def build_argparser():
         "an error")
     later.add_argument("-dp", "--data-parallel", dest="data_parallel",
                        type=int, metavar="N", default=0)
-    later.add_argument("--profile", default="", metavar="DIR")
     return parser
 
 
@@ -162,6 +166,18 @@ def run(args):
     return run_single(args)
 
 
+def run_profiled(args):
+    """``run``, inside a ``torch.profiler`` trace when ``--profile`` is
+    set."""
+    if not args.profile:
+        return run(args)
+    from ..utils.profiling import profile_trace
+    with profile_trace(args.profile):
+        result = run(args)
+    print(f"profiler trace -> {args.profile}")
+    return result
+
+
 def main(argv=None):
     """Returns the CER (``-bm``), the best ``(lm_panelty, len_bonus, CER)``
     (``-gs``), or None (single mode)."""
@@ -169,15 +185,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
     unported = {k: what for k, (default, what) in _UNPORTED.items()
                 if getattr(args, k) != default}
-    if args.model_file.endswith((".pth", ".pth.tar")):
-        unported["model_file"] = _PTH
     if unported:
         parser.error(f"not ported yet: {', '.join(unported)}: "
                      + "; ".join(sorted(set(unported.values()))))
     if not args.grid_search:
-        return run(args)
+        return run_profiled(args)
     # grid search over (alpha=lm_panelty, beta=len_bonus), `test.py:349-382`
     best = (None, None, float("inf"))
+    first = True
     for alpha in np.linspace(args.alpha_lower, args.alpha_upper,
                              args.alpha_count):
         for beta in np.linspace(args.beta_lower, args.beta_upper,
@@ -185,7 +200,8 @@ def main(argv=None):
             args.lm_panelty = float(alpha)
             args.len_bonus = float(beta)
             print(f"grid search: lm_panelty={alpha:.3f} len_bonus={beta:.3f}")
-            cer = run(args)
+            cer = run_profiled(args) if first else run(args)
+            first = False
             if cer is not None and cer < best[2]:
                 best = (alpha, beta, cer)
     print(f"best: lm_panelty={best[0]} len_bonus={best[1]} CER={best[2]}")

@@ -8,9 +8,12 @@ of the reference trainer, `main.py:86-135`).
 (default ``cuda``; ``--device cpu`` runs on the CPU). The recognizer
 computes in bf16 with f32 parameters, as the JAX CLI's does. ``-re`` takes
 a checkpoint this trainer wrote (full resume) or a state dict such as
-``assets/demo_hard/hctr_tiny.pt`` (warm start). ``-m innovation``,
-``--distributed`` and ``--profile`` stop with an error naming their
-ROADMAP item.
+``assets/demo_hard/hctr_tiny.pt`` (warm start). ``-m innovation`` trains
+the isolated-character classifier (``-d`` holds 128x128 glyphs, each
+labelled with its character: ``data/prep/gnt.py`` and ``flow.py`` make
+them), with cross-entropy and top-1 test accuracy. ``--profile DIR``
+writes a ``torch.profiler`` trace of steps 10-30 of the first epoch into
+DIR. ``--distributed`` stops with an error naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,8 +25,6 @@ import numpy as np
 
 _UNPORTED = {
     "distributed": "multi-device training (ROADMAP.md queue 1, item 8)",
-    "profile": "the profiler trace of utils/profiling.py (ROADMAP.md "
-               "queue 1, item 9)",
 }
 
 
@@ -83,10 +84,13 @@ def build_argparser():
                       choices=["model", "sgd", "adam"],
                       help="override the model-attribute optimizer choice "
                            "(`main.py:209-218`; 'model' keeps it)")
+    args.add_argument("--profile", default="", metavar="DIR",
+                      help="write a torch.profiler trace of train steps "
+                           "10-30 of the first epoch into DIR (view with "
+                           "tensorboard --logdir DIR or Perfetto)")
     later = parser.add_argument_group(
         "Not ported yet", "setting any of these stops with an error")
     later.add_argument("--distributed", action="store_true")
-    later.add_argument("--profile", default="", metavar="DIR")
     return parser
 
 
@@ -95,10 +99,6 @@ def main(argv=None):
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: {what} is not ported yet")
-    if args.model_type == "innovation":
-        raise SystemExit("-m innovation: models/innovation.py and its "
-                         "classification trainer are not ported yet "
-                         "(ROADMAP.md queue 1, item 9)")
 
     import torch
     if args.seed is not None:
@@ -126,7 +126,7 @@ def main(argv=None):
         resume=args.resume, test_only=args.test,
         test_verbose=args.testverbose, max_width=args.max_width,
         bucket_step=args.bucket_step, use_width_mask=args.width_mask,
-        out_dir=args.out_dir,
+        out_dir=args.out_dir, profile_dir=args.profile,
         optimizer="" if args.optimizer == "model" else args.optimizer,
         device=args.device)
     Trainer(cfg, model, characters).fit()

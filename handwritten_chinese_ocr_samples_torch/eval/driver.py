@@ -2,7 +2,11 @@
 reference's `test.py:109-306`).
 
 ``-f`` takes the port's state dict (``cli/deploy.load_weights``: a
-``torch.save``d state dict or ``seed:<n>``). The recognizer runs in bf16, as
+``torch.save``d state dict, a reference ``.pth``/``.pth.tar`` through
+``compat/torch_convert.py``, or ``seed:<n>``). A classifier (``-m
+innovation``) is refused: its logits are ``(B, classes)``, not CTC frames,
+and the JAX driver fails on them in its decode; ``cli/train.py --test``
+evaluates it. The recognizer runs in bf16, as
 the JAX driver builds it; ``--int8`` runs its convs in int8, calibrated on
 the first batch (``serve/quant``), and ``--lm-int8`` the LM-fused search's
 LM step. Decode routes (``decode/routes``, which the
@@ -82,6 +86,12 @@ class EvalSession:
         model, characters = get_model_info(
             args.model_type, data_dir=input_path,
             chars_list_file=args.chars_list, dtype=torch.bfloat16)
+        if model.pred != "CTC":
+            raise ValueError(
+                f"-m {args.model_type}: a {model.pred} model gives one class "
+                "an image, not CTC frames, so this driver cannot decode it; "
+                f"evaluate it with cli/train.py -m {args.model_type} --test "
+                "-re <checkpoint> -d <data>")
         model.load_state_dict(load_weights(args.model_file, model))
         self.model = model.to(self.device).eval()
         self.codec = CTCCodec(characters)

@@ -29,7 +29,7 @@ maps one onto the other by path.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -221,7 +221,10 @@ def _maxpool_h2(x: torch.Tensor) -> torch.Tensor:
 class SEResNetBackbone(nn.Module):
     """1 -> ``out_channels`` SE-ResNet with asymmetric pooling.
 
-    Input ``(B, 1, 128, W)``; output ``(B, C, 4, W)``."""
+    Input ``(B, 1, 128, W)``; output ``(B, C, 4, W)``. ``pool`` follows
+    the stem and each stage (``models/innovation.py`` pools 2x2)."""
+
+    pool = staticmethod(_maxpool_h2)
 
     def __init__(self, out_channels: int = 512,
                  num_blocks: Sequence[int] = (2, 4, 5, 1),
@@ -253,10 +256,16 @@ class SEResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
+        return self.stages(x, seed)[-1]
+
+    def stages(self, x: torch.Tensor,
+               seed: Optional[int] = None) -> List[torch.Tensor]:
+        """The output of each of the four stages."""
         x = F.relu(self.bn0_1(self.conv0_1(x)))
         x = F.relu(self.bn0_2(self.conv0_2(x)))
-        x = _maxpool_h2(x)
+        x = self.pool(x)
         remat = self.remat and self.training and torch.is_grad_enabled()
+        features = []
         for stage in range(4):
             for b in range(self.num_blocks[stage]):
                 block = getattr(self, f"block{stage + 1}_{b}")
@@ -265,8 +274,9 @@ class SEResNetBackbone(nn.Module):
                      if remat else block(x, seed))
             x = getattr(self, f"conv{stage + 1}")(x)
             x = F.relu(getattr(self, f"bn{stage + 1}")(x))
-            x = getattr(self, f"drop{stage + 1}")(_maxpool_h2(x), seed)
-        return x
+            x = getattr(self, f"drop{stage + 1}")(self.pool(x), seed)
+            features.append(x)
+        return features
 
 
 class HCTRModel(nn.Module):

@@ -2,7 +2,10 @@
 
 ``hctr`` is the full-width recognizer (512 channels, blocks [2, 4, 5, 1],
 53.1M parameters at 7375 classes); ``hctr-tiny`` is the same topology at 64
-channels and blocks [1, 1, 1, 1], used by the tests.
+channels and blocks [1, 1, 1, 1], used by the tests; ``innovation`` is the
+isolated-character classifier (``models/innovation.py``: the same trunk
+with 2x2 pooling and a 512 -> ``num_classes`` head, 41.8M parameters at
+7375 classes).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from ..core.codec import load_chars_list
 from .hctr import HCTRModel, hctr_model
+from .innovation import innovation_model
 
 
 def _hctr_tiny(num_classes: int, compute_dtype: torch.dtype,
@@ -23,7 +27,8 @@ def _hctr_tiny(num_classes: int, compute_dtype: torch.dtype,
                      **kwargs)
 
 
-_REGISTRY = {"hctr": hctr_model, "hctr-tiny": _hctr_tiny}
+_REGISTRY = {"hctr": hctr_model, "hctr-tiny": _hctr_tiny,
+             "innovation": innovation_model}
 
 
 def list_models():
@@ -53,10 +58,11 @@ def discover_chars_list(input_path: str | None = None) -> str:
 def get_model_info(model_type: str, data_dir: str | None = None,
                    chars_list_file: str | None = None,
                    dtype: torch.dtype = torch.float32, **kwargs
-                   ) -> Tuple[HCTRModel, str]:
+                   ) -> Tuple[torch.nn.Module, str]:
     """Resolve ``(model, characters)`` for a model tag; ``dtype`` is the
-    compute dtype, ``kwargs`` the model's train-mode fields (``stage_drop``,
-    ``block_drop``, ``remat``). ``num_classes = 1 (blank) +
+    compute dtype, ``kwargs`` the model's own fields (``stage_drop``,
+    ``block_drop``, ``remat``; ``innovation``'s ``use_multiscale``,
+    ``use_spatial_attn``, ``head_drop``). ``num_classes = 1 (blank) +
     len(characters) + 1 (unknown)``. The model holds PyTorch's default
     initialisation until a state dict is loaded."""
     if model_type not in _REGISTRY:

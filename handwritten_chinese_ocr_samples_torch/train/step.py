@@ -19,8 +19,11 @@ package has them:
   * dropout masks are seeded by ``fold_in(dropout_seed, step)``, the
     counterpart of ``jax.random.fold_in(dropout_rng, state.step)``.
 
-The classification step of ``models/innovation.py`` is not ported
-(ROADMAP.md queue 1, item 9).
+The classification steps (``pred == "Classification"``, the
+``innovation`` classifier) share all of this: the loss is the mean softmax
+cross-entropy of the f32 logits (``F.cross_entropy``), the metrics add the
+batch's top-1 accuracy, and the eval step returns argmax class ids
+(``torch.argmax`` takes the first of equal maxima, as ``jnp.argmax``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from dataclasses import dataclass
 from typing import Dict, List
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.ctc import ctc_loss_mean, widths_to_paddings
 from ..ops.decode import greedy_decode_device
@@ -136,6 +140,30 @@ def _keep_if_finite(old: List[torch.Tensor], new: List[torch.Tensor],
         o.copy_(torch.where(finite, n, o))
 
 
+def _update(state: TrainState, names, params, loss: torch.Tensor,
+            grads) -> tuple:
+    """Clip, optimizer, and the non-finite skip of one step, on the
+    device; moves the step counter. Returns ``(grad_norm, finite)``."""
+    with torch.no_grad():
+        grad_norm = global_norm(list(grads))
+        finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
+        new_params, new_opt = state.tx.update(
+            list(grads), state.opt_state, list(names), list(params),
+            grad_norm)
+        _keep_if_finite(list(params), new_params, finite)
+        for key, value in new_opt.items():
+            if isinstance(value, dict):
+                _keep_if_finite([state.opt_state[key][n] for n in names],
+                                [value[n] for n in names], finite)
+            elif isinstance(value, torch.Tensor):
+                _keep_if_finite([state.opt_state[key]], [value], finite)
+        for bn in state.module.batch_norms():
+            _keep_if_finite([bn.running_mean, bn.running_var],
+                            list(bn.new_running_stats()), finite)
+    state.step += 1
+    return grad_norm, finite
+
+
 def make_train_step(use_width_mask: bool = False):
     """The train step: forward, CTC, backward, clip, update, skip.
 
@@ -160,28 +188,48 @@ def make_train_step(use_width_mask: bool = False):
         loss = ctc_loss_mean(logits, batch["labels"],
                              batch["label_paddings"], logit_paddings)
         grads = torch.autograd.grad(loss, params)
-        with torch.no_grad():
-            grad_norm = global_norm(list(grads))
-            finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
-            new_params, new_opt = state.tx.update(
-                list(grads), state.opt_state, list(names), list(params),
-                grad_norm)
-            _keep_if_finite(list(params), new_params, finite)
-            for key, value in new_opt.items():
-                if isinstance(value, dict):
-                    _keep_if_finite([state.opt_state[key][n] for n in names],
-                                    [value[n] for n in names], finite)
-                elif isinstance(value, torch.Tensor):
-                    _keep_if_finite([state.opt_state[key]], [value], finite)
-            for bn in model.batch_norms():
-                _keep_if_finite([bn.running_mean, bn.running_var],
-                                list(bn.new_running_stats()), finite)
-        state.step += 1
+        grad_norm, finite = _update(state, names, params, loss, grads)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
                    "skipped": (~finite).float()}
         return state, metrics
 
     return train_step
+
+
+def make_classify_train_step():
+    """The train step of a ``pred == "Classification"`` model: forward,
+    mean softmax cross-entropy on the f32 ``(B, num_classes)`` logits,
+    backward, clip, update, skip. ``batch`` holds ``images`` (B, H, W, 1)
+    and ``labels`` (B,) class ids on the model's device."""
+
+    def train_step(state: TrainState, batch: dict, dropout_seed: int):
+        model = state.module
+        model.train()
+        labels = batch["labels"].long()
+        names, params = zip(*model.named_parameters())
+        logits = model(batch["images"], dropout_seed=fold_in(dropout_seed,
+                                                             state.step))
+        loss = F.cross_entropy(logits.float(), labels)
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+        grads = torch.autograd.grad(loss, params)
+        grad_norm, finite = _update(state, names, params, loss, grads)
+        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+                   "acc": acc, "skipped": (~finite).float()}
+        return state, metrics
+
+    return train_step
+
+
+def make_classify_eval_step(model: torch.nn.Module):
+    """Eval of a classifier: forward in eval mode -> int32 argmax class
+    ids."""
+
+    @torch.no_grad()
+    def eval_step(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        return model(images).argmax(dim=-1).to(torch.int32)
+
+    return eval_step
 
 
 def make_eval_step(model: torch.nn.Module, unknown_id: int,

@@ -14,10 +14,21 @@ largest bucket is 1152: a line clipped to 1200 by ``AlignCollate`` is cut
 to 1152 by the padding, its label left whole (ROADMAP.md, queue 3). The
 loss and the gradient norm are read on the host only every ``print_freq``
 steps.
+
+The model's ``pred`` attribute picks the task, as in the JAX trainer:
+``"CTC"`` (above) or ``"Classification"`` (``models/innovation.py``): one
+``(H, H)`` square bucket, each label's first character as its class id (the
+codec's class space, unknown last), the cross-entropy step, and top-1
+accuracy as the test accuracy.
+
+``profile_dir`` traces steps [10, 30) of the first trained epoch with
+``utils/profiling.profile_trace`` (past cuDNN's autotune and the loader's
+warm-up; bounded so that the trace stays viewable).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -32,10 +43,14 @@ from ..data.dataset import ImageDataset
 from ..data.loader import DataLoader
 from ..eval.metrics import AverageMeter, cer_counts
 from ..ops.dropout import fold_in
+from ..utils.profiling import profile_trace
 from ..utils.weights import init_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
-from .step import (TrainState, adjust_learning_rate, make_eval_step,
-                   make_optimizer, make_train_step)
+from .step import (TrainState, adjust_learning_rate,
+                   make_classify_eval_step, make_classify_train_step,
+                   make_eval_step, make_optimizer, make_train_step)
+
+PROFILE_STEPS = (10, 30)        # the traced steps of the first epoch
 
 
 @dataclass
@@ -64,14 +79,15 @@ class TrainerConfig:
     # empty: the model's ``optimizer`` attribute decides (`main.py:209-218`)
     optimizer: str = ""
     device: str = "cuda"
+    profile_dir: str = ""
 
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig, model, characters: str):
-        if getattr(model, "pred", "CTC") != "CTC":
-            raise ValueError("the classification trainer (models/"
-                             "innovation.py) is not ported: ROADMAP.md "
-                             "queue 1, item 9")
+        # the task travels as a model attribute (`innovation.py:236`)
+        self.pred_mode = getattr(model, "pred", "CTC")
+        if self.pred_mode not in ("CTC", "Classification"):
+            raise ValueError(f"not expected pred mode: {self.pred_mode}")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.codec = CTCCodec(characters)
@@ -87,9 +103,15 @@ class Trainer:
         self.state = TrainState.create(self.model, make_optimizer(
             kind, lr=cfg.lr, momentum=cfg.momentum,
             weight_decay=cfg.weight_decay))
-        self.train_step = make_train_step(use_width_mask=cfg.use_width_mask)
-        self.eval_step = make_eval_step(self.model, self.codec.unknown_id,
-                                        use_width_mask=cfg.use_width_mask)
+        if self.pred_mode == "Classification":
+            self.train_step = make_classify_train_step()
+            self.eval_step = make_classify_eval_step(self.model)
+        else:
+            self.train_step = make_train_step(
+                use_width_mask=cfg.use_width_mask)
+            self.eval_step = make_eval_step(
+                self.model, self.codec.unknown_id,
+                use_width_mask=cfg.use_width_mask)
 
         self.start_epoch = cfg.start_epoch
         if cfg.resume:
@@ -101,13 +123,18 @@ class Trainer:
     # ------------------------------------------------------------- loaders
     def _loader(self, phase: str, shuffle: bool) -> DataLoader:
         cfg = self.cfg
-        dataset = ImageDataset(cfg.data, (1, self.model.img_height), phase,
+        h = self.model.img_height
+        dataset = ImageDataset(cfg.data, (1, h), phase,
                                batch_size=cfg.batch_size)
-        collate = AlignCollate(
-            imgH=self.model.img_height, PAD=self.model.pad_mode,
-            max_width=cfg.max_width,
-            bucket_spec=BucketSpec(tuple(range(
-                cfg.bucket_step, cfg.max_width + 1, cfg.bucket_step))))
+        if self.pred_mode == "Classification":
+            # isolated-character squares (`gnt2png.py:46-60`): one shape
+            collate = AlignCollate(imgH=h, PAD=self.model.pad_mode,
+                                   max_width=h, bucket_spec=BucketSpec((h,)))
+        else:
+            collate = AlignCollate(
+                imgH=h, PAD=self.model.pad_mode, max_width=cfg.max_width,
+                bucket_spec=BucketSpec(tuple(range(
+                    cfg.bucket_step, cfg.max_width + 1, cfg.bucket_step))))
         return DataLoader(dataset, cfg.batch_size, collate, shuffle=shuffle,
                           seed=cfg.seed or 0, group_by_width=shuffle,
                           num_workers=cfg.workers)
@@ -118,9 +145,20 @@ class Trainer:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def class_ids(self, labels) -> np.ndarray:
+        """Each label's first character -> its class id (the codec's: the
+        characters at 1..N, unknown last)."""
+        return np.array([self.codec.dict.get(s[:1], self.codec.unknown_id)
+                         for s in labels], dtype=np.int32)
+
     def device_batch(self, batch: dict) -> dict:
         """A host batch -> the train step's: images and labels on the
-        device, label paddings and widths on the CPU (the CTC lengths)."""
+        device; for CTC, label paddings and widths on the CPU (the CTC
+        lengths)."""
+        if self.pred_mode == "Classification":
+            return {"images": self._to_device(batch["images"]),
+                    "labels": self._to_device(
+                        self.class_ids(batch["labels"]))}
         labels, label_paddings = self.codec.encode_padded(
             batch["labels"], max_len=self.cfg.max_label_len)
         return {"images": self._to_device(batch["images"]),
@@ -176,8 +214,19 @@ class Trainer:
         data_time = AverageMeter("data", ":.3f")
         losses = AverageMeter("loss", ":.4f")
         dropout_seed = fold_in(self.dropout_seed, epoch)
+        trace = contextlib.ExitStack()
+        profile = bool(cfg.profile_dir) and epoch == self.start_epoch
+        tracing = False
         end = time.time()
         for i, batch in enumerate(self._device_iter(loader)):
+            if profile and i == PROFILE_STEPS[0]:
+                trace.enter_context(profile_trace(cfg.profile_dir))
+                tracing = True
+            elif tracing and i == PROFILE_STEPS[1]:
+                trace.close()
+                tracing = False
+                print(f"profiler trace (steps {PROFILE_STEPS[0]}-"
+                      f"{PROFILE_STEPS[1]}) -> {cfg.profile_dir}")
             data_time.update(time.time() - end)
             n_items = int(batch["images"].shape[0])
             self.state, metrics = self.train_step(self.state, batch,
@@ -199,11 +248,16 @@ class Trainer:
                                 is_best=is_best, acc=acc, is_val=True)
             batch_time.update(time.time() - end)
             end = time.time()
+        if tracing:                     # an epoch shorter than the window
+            trace.close()
+            print(f"profiler trace -> {cfg.profile_dir}")
 
     # ---------------------------------------------------------------- eval
     def evaluate(self, phase: str = "test") -> float:
-        """Greedy decode of a split; accuracy = 1 - CER
-        (`main.py:516-537`)."""
+        """CTC: greedy decode of a split, accuracy = 1 - CER
+        (`main.py:516-537`). Classification: top-1 accuracy."""
+        if self.pred_mode == "Classification":
+            return self._evaluate_top1(phase)
         dist_sum, len_sum = 0, 0
         for batch in self._loader(phase, shuffle=False):
             chars, lengths = self.eval_step(
@@ -218,3 +272,16 @@ class Trainer:
                 for p, g in zip(preds, batch["labels"]):
                     print(f"PRE: {p}\nTRU: {g}")
         return 1.0 - dist_sum / max(len_sum, 1)
+
+    def _evaluate_top1(self, phase: str) -> float:
+        correct, total = 0, 0
+        for batch in self._loader(phase, shuffle=False):
+            pred = self.eval_step(self._to_device(batch["images"]))
+            pred = pred.cpu().numpy()
+            truth = self.class_ids(batch["labels"])
+            correct += int((truth == pred).sum())
+            total += len(truth)
+            if self.cfg.test_verbose:
+                for p, g in zip(pred, batch["labels"]):
+                    print(f"PRE: {self.codec.characters[int(p)]}\nTRU: {g}")
+        return correct / max(total, 1)

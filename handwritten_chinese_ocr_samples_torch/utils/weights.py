@@ -2,12 +2,14 @@
 
 ``flax_to_torch`` takes the JAX package's ``{"params", "batch_stats"}`` tree
 as nested dicts of numpy arrays (however the caller read it) and returns a
-``state_dict`` for ``models/hctr.HCTRModel``:
+``state_dict`` for ``models/hctr.HCTRModel`` or
+``models/innovation.InnovationModel``:
 
   * conv kernels ``(kh, kw, I, O)`` -> ``(O, I, kh, kw)``;
   * dense kernels ``(I, O)`` -> ``(O, I)`` (the SE FCs have no bias);
   * BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) ->
     ``weight/bias/running_mean/running_var``;
+  * the spatial attention's ``gamma`` keeps its name;
   * every floating leaf, bf16 (ml_dtypes) included, is upcast to f32, the
     serving dtype contract of the JAX package's ``utils/ckpt_io.py:35-62``.
 
@@ -74,7 +76,7 @@ def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
             name = "weight"
         elif name in _PARAM_NAMES:
             name = _PARAM_NAMES[name]
-        else:
+        elif name != "gamma":
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         out[".".join([*mod, name])] = torch.from_numpy(np.ascontiguousarray(a))
     for path, leaf in _walk(variables.get("batch_stats", {})):

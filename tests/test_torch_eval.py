@@ -11,8 +11,9 @@
   ``NEAR_TIES``, each of which the test shows to be a bf16 near-tie. With
   the recognizer in f32 on both sides the texts are equal everywhere.
 * ``-gs`` on a 2x2 grid over 8 lines picks JAX's pair; single-image mode
-  prints JAX's texts; the surfaces not ported stop with an error that names
-  their ROADMAP item.
+  prints JAX's texts; ``--profile`` traces a run, reference ``.pth``/
+  ``.pth.tar`` files load; the surfaces not ported stop with an error that
+  names their ROADMAP item.
 """
 
 import contextlib
@@ -307,14 +308,15 @@ def test_single_mode_prints_jax_texts(split16, f32_recognizers, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["-dp", "2"], ["-b", "8", *conv.INT8_EVAL_COMMANDS["greedy"]],
-    ["-b", "8", *conv.INT8_EVAL_COMMANDS["lm_ss"]],
-    ["--profile", "trace"], ["-f", "x.pth"], ["-f", "x.pth.tar"]])
+    ["-b", "8", *conv.INT8_EVAL_COMMANDS["lm_ss"]]])
 def test_unported_flags_error(split16, committed, flags, capsys):
     """The surfaces not ported stop with an error that names their ROADMAP
     item. ``--int8`` and ``--lm-int8``, refused until int8 was ported, now
     run (on RESULTS.md's greedy and LM ``-ss`` commands): the 17-site
     one-liner, and a CER within 0.02 of the float command's (the JAX
-    eval's texts on the same lines)."""
+    eval's texts on the same lines). ``--profile`` and reference
+    ``.pth``/``.pth.tar`` files, refused until they were ported, are
+    ``test_profile_and_reference_checkpoints``'s."""
     argv = ["-m", "hctr-tiny", "-f", WEIGHTS, "-i", split16, "-bm", "-d",
             "cpu", *[LM if f == "LM" else f for f in flags]]
     if "--int8" in flags:
@@ -334,6 +336,61 @@ def test_unported_flags_error(split16, committed, flags, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and "ROADMAP.md queue 1, item" in err
+
+
+@pytest.fixture(scope="module")
+def greedy16(split16):
+    """``-bm -tv -b 8 -dm greedy-search`` on the 16 lines with
+    ``hctr_tiny.pt``: (CER, the PRE/TRU lines)."""
+    cer, out = _port_eval(["-m", "hctr-tiny", "-f", WEIGHTS, "-i", split16,
+                           "-bm", "-d", "cpu", "-b", "8", "-dm",
+                           "greedy-search", "-tv"])
+    return cer, [s for s in out.splitlines() if s.startswith(("PRE", "TRU"))]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--profile", "trace"], ["-f", "x.pth"], ["-f", "x.pth.tar"]])
+def test_profile_and_reference_checkpoints(split16, greedy16, flags,
+                                           tmp_path):
+    """``--profile DIR`` writes a ``torch.profiler`` trace of the run into
+    DIR, at the unprofiled run's CER and texts; ``-f`` a reference
+    ``.pth`` (a bare state dict) or ``.pth.tar`` (the reference's training
+    checkpoint, under DDP's ``module.``), built here from the same weights
+    in the reference's layout, gives the texts of ``-f hctr_tiny.pt``."""
+    from tests.torch_reference_layout import reference_state_dict
+    argv = ["-m", "hctr-tiny", "-i", split16, "-bm", "-d", "cpu", "-b", "8",
+            "-dm", "greedy-search", "-tv"]
+    if flags[0] == "--profile":
+        trace = str(tmp_path / "trace")
+        argv += ["-f", WEIGHTS, "--profile", trace]
+    else:
+        ref = reference_state_dict(torch.load(WEIGHTS, weights_only=True))
+        path = str(tmp_path / flags[1])
+        torch.save(ref if path.endswith(".pth") else {
+            "epoch": 3, "best_acc": 0.9, "optimizer": {},
+            "state_dict": {f"module.{k}": v for k, v in ref.items()}}, path)
+        argv += ["-f", path]
+    cer, out = _port_eval(argv)
+    assert cer == greedy16[0]
+    assert [s for s in out.splitlines()
+            if s.startswith(("PRE", "TRU"))] == greedy16[1]
+    if flags[0] == "--profile":
+        assert f"profiler trace -> {trace}" in out
+        files = os.listdir(trace)
+        assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+        with open(os.path.join(trace, files[0])) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert "aten::convolution" in names
+
+
+def test_classifier_is_refused_naming_the_trainer(split16):
+    """The JAX eval CLI takes ``-m innovation`` and fails in its greedy
+    decode on the classifier's ``(B, classes)`` logits; the port stops
+    before loading, naming ``cli/train.py --test``, the JAX package's one
+    classifier eval."""
+    with pytest.raises(ValueError, match="cli/train.py -m innovation --test"):
+        port_cli.main(["-m", "innovation", "-f", "seed:0", "-i", split16,
+                       "-bm", "-d", "cpu"])
 
 
 def test_named_near_ties_are_bf16_near_ties(split16):

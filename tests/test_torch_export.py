@@ -266,8 +266,21 @@ def test_cli_export_end_to_end(tmp_path):
 
     with pytest.raises(SystemExit):
         export_cli.main(["-o", str(out)])
-    with pytest.raises(SystemExit):
-        export_cli.main(["-f", "ref.pth", "-o", str(out)])
+    # a reference .pth (refused until compat/torch_convert.py was ported),
+    # built here from the same weights in the reference's layout: its bundle
+    # holds the same weights
+    from tests.torch_reference_layout import reference_state_dict
+    ref = str(tmp_path / "ref.pth")
+    torch.save(reference_state_dict(torch.load(
+        os.path.join(conv.OUT, "hctr_tiny.pt"), weights_only=True)), ref)
+    res = export_cli.main([
+        "-m", "hctr-tiny", "-f", ref, "-o", str(tmp_path / "pth"), "-w",
+        str(w), "-b", "2", "-cl", os.path.join(DATA, "chars_list.txt"),
+        "--device", "cpu"])
+    from_pth = export.load_weights(
+        str(tmp_path / "pth" / res["model"]["weights"]), "cpu")
+    assert from_pth.keys() == weights.keys()
+    assert all(torch.equal(from_pth[k], weights[k]) for k in weights)
 
 
 def test_calibration_images_match_jax_cli(tmp_path):

@@ -2,9 +2,10 @@
 
 That machine has torch, numpy and the CUDA toolkit, but no JAX stack, no
 OpenCV or PIL, and none of the JAX package (whose ``__init__`` imports JAX).
-A subprocess refuses those imports, then imports every module of the port and
-``chip_smoke``. ``chip_smoke.py`` must also fail, printing no result, where
-there is no card or no repository around it. The native host libraries
+A subprocess refuses those imports, then imports every module of the port,
+``chip_smoke`` and the test helper it reads. ``chip_smoke.py`` must also
+fail, printing no result, where there is no card or no repository around
+it. The native host libraries
 (``native/*.cc``) are built with the host C++ compiler; with none on
 ``PATH`` the build raises, and no decoder falls back to Python.
 """
@@ -39,6 +40,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert chip_smoke.__name__ == "chip_smoke"
+import runpy
+runpy.run_path("tests/torch_reference_layout.py")  # chip_smoke's pth phase
 print("modules", " ".join(names))
 print("imported", len(names))
 """
@@ -57,11 +60,15 @@ def test_port_imports_without_jax_cv2_pil():
                           env=_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported")[-1])
-    # lm/*, ops/* (ctc, dropout and int8_conv too), decode/*, data/*,
-    # eval/*, cli/* (train too), serve/* (quant too) and train/*
-    assert n >= 53
+    # lm/*, ops/* (ctc, dropout and int8_conv too), decode/*, data/*
+    # (prep too), eval/*, cli/* (train too), serve/* (quant too), train/*,
+    # compat/*, models/innovation and utils/profiling
+    assert n >= 60
     names = proc.stdout.split("modules", 1)[1].split("imported")[0].split()
-    assert {f"{PORT}.ops.int8_conv", f"{PORT}.serve.quant"} <= set(names)
+    assert {f"{PORT}.ops.int8_conv", f"{PORT}.serve.quant",
+            f"{PORT}.models.innovation", f"{PORT}.compat.torch_convert",
+            f"{PORT}.utils.profiling", f"{PORT}.data.prep.gnt",
+            f"{PORT}.data.prep.flow"} <= set(names)
 
 
 def test_chip_smoke_fails_without_a_card():

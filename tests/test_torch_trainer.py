@@ -147,7 +147,8 @@ def test_bucket_cap_crop_reproduced(tmp_path):
     model = types.SimpleNamespace(img_height=128, pad_mode="NormalizePAD")
     jstub = types.SimpleNamespace(cfg=JaxConfig(**cfg), model=model,
                                   pred_mode="CTC")
-    pstub = types.SimpleNamespace(cfg=TrainerConfig(**cfg), model=model)
+    pstub = types.SimpleNamespace(cfg=TrainerConfig(**cfg), model=model,
+                                  pred_mode="CTC")
     jl = JaxTrainer._loader(jstub, "train", shuffle=True)
     pl = Trainer._loader(pstub, "train", shuffle=True)
     jl.set_epoch(1)
@@ -290,10 +291,59 @@ def test_cli_train_writes_the_jax_names(hard16, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-m", "innovation"], "item 9"),
     (["-m", "hctr-tiny", "--distributed"], "item 8"),
-    (["-m", "hctr-tiny", "--profile", "trace"], "item 9"),
 ])
 def test_cli_train_unported_flags_stop(flags, item, tmp_path):
     with pytest.raises(SystemExit, match=item):
         train_cli.main([*flags, "-d", str(tmp_path), "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def glyphs128(tmp_path_factory):
+    """``test_classify_train.py``'s glyph set at 128 px: 48 train, 8 test."""
+    from tests.test_classify_train import make_char_dataset
+    return make_char_dataset(str(tmp_path_factory.mktemp("glyphs128")),
+                             n_train=48, n_test=8, h=128)
+
+
+@pytest.mark.parametrize("profile", [False, True])
+def test_cli_train_innovation(glyphs128, profile, tmp_path, monkeypatch):
+    """``-m innovation`` through ``cli/train.py`` on the CPU (the registry's
+    classifier narrowed to 64 channels here; its full width is
+    ``test_torch_innovation.py``'s): one epoch of 12 steps, the JAX
+    checkpoint names, ``--test`` on the checkpoint printing the epoch's
+    accuracy; with ``--profile`` a ``torch.profiler`` trace of steps 10-11
+    (the epoch ends before 30)."""
+    from handwritten_chinese_ocr_samples_torch.models import registry
+    from handwritten_chinese_ocr_samples_torch.models.innovation import (
+        InnovationModel)
+    monkeypatch.setitem(
+        registry._REGISTRY, "innovation",
+        lambda num_classes, compute_dtype: InnovationModel(
+            num_classes, compute_dtype=compute_dtype, backbone_channels=64,
+            num_blocks=(1, 1, 1, 1)))
+    out, trace = str(tmp_path / "out"), str(tmp_path / "trace")
+    argv = ["-m", "innovation", "-d", glyphs128, "-b", "4", "--seed", "0",
+            "--device", "cpu", "-j", "0"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(argv + ["-ep", "1", "--out-dir", out]
+                       + (["--profile", trace] if profile else []))
+    printed = re.findall(r"epoch 0: test acc ([0-9.]+)", buf.getvalue())
+    assert len(printed) == 1
+    best = ([f"innovation_1ep_{printed[0]}acc_checkpoint"]
+            if float(printed[0]) > 0 else [])   # kept when above best_acc 0
+    assert sorted(os.listdir(out)) == sorted(["innovation_checkpoint",
+                                              *best])
+    if profile:
+        assert f"profiler trace -> {trace}" in buf.getvalue()
+        files = os.listdir(trace)
+        assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+        assert os.path.getsize(os.path.join(trace, files[0])) > 0
+    else:
+        assert not os.path.exists(trace)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(argv + ["--test", "-re",
+                               os.path.join(out, "innovation_checkpoint")])
+    assert f"Test acc: {printed[0]}" in buf.getvalue()
