@@ -7,6 +7,7 @@
     python3 chip_smoke.py --export
     python3 chip_smoke.py --lm
     python3 chip_smoke.py --classify
+    python3 chip_smoke.py --dist
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
@@ -121,6 +122,36 @@ checkpoints (no new kernel; the classifier reaches no TPU kernel):
     ``cli/test.py`` (the 150 texts of ``hctr_tiny.pt``) and
     ``cli/export.py`` (the same weights and served texts).
 
+Multi-device, the DGRL/DGR prep and the two opt-in merges (no new kernel;
+the card is one H100, so nothing runs across cards):
+
+  * ``ddp_train``: (a) a world-size-1 NCCL group through
+    ``parallel/mesh.initialize_distributed``, the full-width ``hctr`` at
+    b16 w1152, three SGD steps bit-equal to the same steps without a group
+    (deterministic algorithms on for both), ms a step beside each other;
+    (b) two gloo ranks sharing the card, 8 rows each, f64 activations at
+    w256, against the one-process step on 16 rows: losses, parameters and
+    BatchNorm statistics after two steps within ``TRAIN_*_TOL``;
+  * ``train_cli_ddp``: ``cli/train.py --distributed`` under
+    ``torch.distributed.run --standalone --nproc_per_node 1`` for one
+    epoch of demo/hard (``train_cli``'s seed 0): one accuracy line, rank
+    0's checkpoints, the accuracy within ``TRAIN_CLI_ACC_TOL`` of the run
+    without ``--distributed``;
+  * ``prep``: seeded DGRL pages (gray and 1-bit, in a zip) and DGR pages
+    through ``data/prep/dgrl.py`` and ``data/prep/dgr.py`` (extraction,
+    then synthesis until the glyphs run out); every line loads through the
+    port's dataset with its text;
+  * ``merges``: demo/hard's 150 lines on the plain beam with
+    ``HCTR_DENSE_MERGE=0`` and on ``-ss`` with ``HCTR_LM_DENSE_MERGE=1``
+    against the default merges' texts (a differing line printed with its
+    score gap; on ``-ss`` it must be a near-tie);
+  * ``eval_dp``: the eval driver on demo/hard's 150 lines at ``-b 10`` with
+    two row shards on the one card, greedy and ``-ss`` (f32), texts and
+    CER equal to the unsharded run's, K1-K4 launched from both shards
+    (counted by ``parallel/mesh.current_shard``); ``cli/test.py -dp 2``
+    stops with the JAX driver's message.
+
+``--dist`` runs only the build and these five phases.
 ``--int8`` runs only the build and the int8 phases; ``--export`` only the
 build and ``export``; ``--lm`` only the build, ``lm_train`` and
 ``ngram_train``; ``--classify`` only the build and the five phases above. ``--kernels`` runs
@@ -1781,7 +1812,7 @@ def phase_demo_hard(dev):
     paths = [os.path.join(DEMO_HARD, "test", name) for name in files]
     truth = [labels[name] for name in files]
     engines = demo_hard_engines(dev)
-    out, counts = {}, {}
+    out, counts, served = {}, {}, {}
     for route, engine in engines.items():
         engine.infer_files_batched(paths[:committed["batch"]],
                                    batch_size=committed["batch"])  # warm-up
@@ -1791,6 +1822,7 @@ def phase_demo_hard(dev):
             paths, batch_size=committed["batch"])
         if route == "ss":
             counts = launch_counts()  # ---- end of main path
+        served[route] = texts
         differ = [i for i, (a, b) in enumerate(zip(texts, committed[route]))
                   if a != b]
         lines = []
@@ -1827,7 +1859,7 @@ def phase_demo_hard(dev):
           "batch": committed["batch"], "widths": list(WIDTHS),
           "results_md_cer": {"greedy": 0.0887, "ss": 0.0},
           "launches_ss": counts, "k1_check": k1_check, **out})
-    return counts
+    return counts, served
 
 
 def native_library() -> dict:
@@ -4342,6 +4374,642 @@ def phase_ngram_train() -> None:
     shutil.rmtree(out_dir)
 
 
+# --------------------------------------- multi-device, DGR/DGRL prep, merges
+# ddp_train (a): the full-width hctr's train step, three steps with a
+# world-size-1 NCCL group against the same steps without one (bit-equal)
+DDP_WIDTH, DDP_BATCH, DDP_STEPS, DDP_LR = 1152, 16, 3, 0.01
+# ddp_train (b): two gloo ranks of 8 rows on the one card against the
+# one-process step on 16, f64 activations (the rounding of the two sums'
+# orders then lies far below train_parity's tolerances), two SGD steps
+DDP_PARITY_WIDTH, DDP_PARITY_STEPS = 256, 2
+# eval_dp: demo/hard's 150 test lines at -b 10 (15 full batches, 5 rows a
+# shard), recognizer and LM in f32, two shards on the one card
+DP_BATCH = 10
+DP_COMMANDS = {"greedy": EVAL_COMMANDS["greedy"][0],
+               "lm_ss": EVAL_COMMANDS["lm_ss"][0] + ["--lm-f32"]}
+PREP_SEED = 7
+
+
+def ddp_model(dev, dtype):
+    """The full-width hctr (7375 classes), dropout 0, f32 parameters from
+    ``seeded_state_dict(0)``, computing in ``dtype``."""
+    model, chars = get_model_info("hctr", chars_list_file=CHARS_LIST,
+                                  dtype=dtype, stage_drop=(0.0,) * 4,
+                                  block_drop=0.0)
+    model.load_state_dict(seeded_state_dict(model, 0))
+    return model.to(dev), chars
+
+
+def ddp_batches(classes: int, n: int, B: int, W: int) -> list:
+    """``n`` seeded batches of the train step's layout (numpy). No label
+    repeats a class: the CTC backward on the card adds a sequence's
+    positions of one class with atomics, in an order that may vary, and
+    with one position a class it has one writer an element, so ``(a)``'s
+    bits depend on the group alone."""
+    rng = np.random.default_rng(PARITY_SEED)
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(8, 33, B)
+        out.append({
+            "images": rng.uniform(-1, 1, (B, 128, W, 1)).astype(np.float32),
+            "labels": np.stack([rng.choice(np.arange(1, classes - 1), 32,
+                                           replace=False)
+                                for _ in range(B)]).astype(np.int32),
+            "label_paddings": (np.arange(32)[None] >= lengths[:, None]
+                               ).astype(np.float32),
+            "widths": np.full((B,), W, np.int32)})
+    return out
+
+
+def ddp_steps(model, batches, dev, rows=None) -> tuple:
+    """SGD train steps of the port (``train/step.py``) on ``batches`` (on
+    rows ``rows = (rank, world)`` of each): the losses, each step's ms
+    (CUDA events), and the state dict after."""
+    from handwritten_chinese_ocr_samples_torch.parallel.mesh import shard_rows
+    from handwritten_chinese_ocr_samples_torch.train.step import (
+        TrainState, make_optimizer, make_train_step)
+    state = TrainState.create(model, make_optimizer("SGD", lr=DDP_LR))
+    step = make_train_step()
+    losses, events = [], []
+    for batch in batches:
+        if rows is not None:
+            batch = {k: shard_rows(v, rows[1], rows[0])
+                     for k, v in batch.items()}
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        state, m = step(state, step_batch(batch, dev), 0)
+        losses.append(m["loss"])
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    torch.cuda.synchronize()
+    return ([float(x) for x in losses], steps_ms(events),
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def _ddp_parity_rank(rank: int, world: int, store: str, init: str,
+                     batches: str, out_dir: str) -> None:
+    """One gloo rank of ``ddp_train`` (b), on the one card."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    dev = torch.device("cuda", 0)
+    model, _ = ddp_model(dev, torch.float64)
+    model.load_state_dict(torch.load(init))
+    batches = torch.load(batches, weights_only=False)
+    losses, _, state = ddp_steps(model, batches, dev, rows=(rank, world))
+    torch.save({"losses": losses, "state": state},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp_train(dev) -> dict:
+    """Data-parallel training (``parallel/mesh.py``, ``train/step.py``):
+
+    (a) a world-size-1 NCCL group through ``initialize_distributed`` (the
+    environment ``torch.distributed.run`` gives), the full-width ``hctr``
+    at b16 w1152 (bf16 compute, dropout 0, SGD): three steps bit-equal, in
+    losses and in every parameter and statistic, to the same steps
+    without a group (deterministic algorithms on for both, so that a
+    difference is the group's), and their ms a step beside each other;
+
+    (b) two gloo ranks on the one card (NCCL takes one rank a card), 8
+    rows each, against the one-process step on all 16 rows, f64
+    activations at w256: the losses within ``TRAIN_LOSS_TOL``, the
+    parameters within ``TRAIN_PARAM_TOL`` * lr and the BatchNorm
+    statistics within ``TRAIN_STAT_TOL`` after two steps; the ranks
+    bit-equal."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from handwritten_chinese_ocr_samples_torch.parallel import mesh
+    out = {}
+    # ---- (a)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model, chars = ddp_model(dev, torch.bfloat16)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        batches = ddp_batches(len(chars) + 2, DDP_STEPS, DDP_BATCH,
+                              DDP_WIDTH)
+        ddp_steps(model, batches[:1], dev)          # cuDNN's first calls
+        model.load_state_dict(init)
+        alone = ddp_steps(model, batches, dev)
+        model.load_state_dict(init)
+        env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+        os.environ.update(env)
+        try:
+            got_dev = mesh.initialize_distributed("cuda")
+            check(torch.distributed.get_backend() == "nccl"
+                  and mesh.world_size() == 1 and got_dev == dev,
+                  "ddp_train: no NCCL group of one")
+            grouped = ddp_steps(model, batches, dev)
+        finally:
+            torch.distributed.destroy_process_group()
+            for k in env:
+                os.environ.pop(k)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del model
+    torch.cuda.empty_cache()
+    differ = [k for k in init if not torch.equal(alone[2][k], grouped[2][k])]
+    check(alone[0] == grouped[0] and not differ,
+          f"ddp_train (a): losses {alone[0]} vs {grouped[0]}, tensors "
+          f"differing {differ[:5]}")
+    out["world_size_1_nccl"] = {
+        "model": "hctr (full width, 7375 classes)", "batch": DDP_BATCH,
+        "width": DDP_WIDTH, "compute": "bf16", "steps": DDP_STEPS,
+        "losses": grouped[0], "bit_equal": True,
+        "ms_per_step_no_group": alone[1], "ms_per_step_nccl_group":
+        grouped[1], "deterministic_algorithms": True}
+    # ---- (b)
+    with tempfile.TemporaryDirectory() as tmp:
+        model, chars = ddp_model(dev, torch.float64)
+        batches = ddp_batches(len(chars) + 2, DDP_PARITY_STEPS, DDP_BATCH,
+                              DDP_PARITY_WIDTH)
+        torch.save(model.state_dict(), os.path.join(tmp, "init.pt"))
+        torch.save(batches, os.path.join(tmp, "batches.pt"))
+        t0 = time.perf_counter()
+        want_losses, want_ms, want = ddp_steps(model, batches, dev)
+        one_s = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(_ddp_parity_rank, nprocs=2, join=True, args=(
+            2, os.path.join(tmp, "store"), os.path.join(tmp, "init.pt"),
+            os.path.join(tmp, "batches.pt"), tmp))
+        ranks_s = time.perf_counter() - t0
+        r0, r1 = (torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                  for r in range(2))
+    check(r0["losses"] == r1["losses"] and all(
+        torch.equal(r0["state"][k], r1["state"][k]) for k in want),
+        "ddp_train (b): the two ranks differ")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       want_losses))
+    param = max(float((r0["state"][k] - v).abs().max()) / DDP_LR
+                for k, v in want.items() if not k.startswith("running")
+                and "running" not in k)
+    stat = max(float((r0["state"][k] - v).abs().max())
+               for k, v in want.items() if "running" in k)
+    check(loss_rel <= TRAIN_LOSS_TOL and param <= TRAIN_PARAM_TOL
+          and stat <= TRAIN_STAT_TOL,
+          f"ddp_train (b): loss {loss_rel}, param/lr {param}, stat {stat}")
+    out["two_gloo_ranks"] = {
+        "rows": [DDP_BATCH // 2] * 2, "width": DDP_PARITY_WIDTH,
+        "compute": "f64", "steps": DDP_PARITY_STEPS, "losses": r0["losses"],
+        "losses_one_process": want_losses, "loss_rel_err": loss_rel,
+        "param_err_over_lr": param, "stat_err": stat,
+        "tolerances": {"loss_rel": TRAIN_LOSS_TOL,
+                       "param_over_lr": TRAIN_PARAM_TOL,
+                       "stat": TRAIN_STAT_TOL},
+        "one_process_s": one_s, "two_ranks_s_with_start": ranks_s,
+        "one_process_ms_per_step": want_ms}
+    emit({"phase": "ddp_train", **out})
+    return out
+
+
+def start_train_cli_ddp(tmp: str, plain: bool = False) -> tuple:
+    """``cli/train.py --distributed`` under ``torch.distributed.run`` with
+    one process (one card), a warm start from the converted demo/hard
+    weights, one epoch at batch 8, seed 0, in the background; with
+    ``plain`` the same command without ``--distributed`` beside it."""
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    for name in ("train", "test", "train_img_id_gt.txt",
+                 "test_img_id_gt.txt", "chars_list.txt"):
+        os.symlink(os.path.abspath(os.path.join(DEMO_HARD, name)),
+                   os.path.join(data, name))
+    out_dir = os.path.join(tmp, "out")
+    train = ["-m", "hctr-tiny", "-d", data, "-re",
+             f"{DEMO_ASSETS}/hctr_tiny.pt", "-b", "8", "-ep", "1", "--seed",
+             "0"]
+    argv = ["--standalone", "--nproc_per_node", "1", "-m",
+            "handwritten_chinese_ocr_samples_torch.cli.train",
+            "--distributed", *train, "--out-dir", out_dir]
+    log = os.path.join(tmp, "cli")
+    with open(f"{log}.out", "w") as o, open(f"{log}.err", "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", *argv],
+            stdout=o, stderr=e, text=True)
+    _CHILDREN.append(proc)
+    alone = None
+    if plain:
+        log1 = os.path.join(tmp, "cli_alone")
+        alone = (log1, start_cli(train + ["--out-dir", os.path.join(
+            tmp, "out_alone")], log1))
+    return argv, out_dir, log, proc, time.perf_counter(), alone
+
+
+def phase_train_cli_ddp(started: tuple, reference: float | None) -> dict:
+    """``start_train_cli_ddp``'s run: exit 0, one accuracy line, the JAX
+    trainer's two checkpoint names written once (by rank 0), and the
+    accuracy within ``TRAIN_CLI_ACC_TOL`` of ``reference``, the same
+    command's without ``--distributed`` (``train_cli``'s seed 0, or the
+    run started beside it when that phase has not run)."""
+    import re
+    argv, out_dir, log, proc, t0, alone = started
+    if reference is None:
+        run = finish_cli(alone[1], alone[0])
+        check(run.returncode == 0, f"train_cli_ddp: the plain run exit "
+              f"{run.returncode}: {run.stderr[-2000:]}")
+        reference = float(re.findall(r"epoch 0: test acc ([0-9.]+)",
+                                     run.stdout)[0])
+    run = finish_cli(proc, log)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"train_cli_ddp: exit {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    printed = re.findall(r"epoch 0: test acc ([0-9.]+)", run.stdout)
+    check(len(printed) == 1 and "warm start" in run.stdout,
+          f"train_cli_ddp: {run.stdout[-2000:]}")
+    files = sorted(os.listdir(out_dir))
+    want = sorted(["hctr-tiny_checkpoint",
+                   f"hctr-tiny_1ep_{printed[0]}acc_checkpoint"])
+    check(files == want, f"train_cli_ddp: files {files}, not {want}")
+    acc = float(printed[0])
+    check(abs(acc - reference) <= TRAIN_CLI_ACC_TOL,
+          f"train_cli_ddp: test acc {acc} vs {reference} without "
+          f"--distributed")
+    out = {"argv": "torch.distributed.run " + " ".join(argv).replace(
+               os.path.dirname(out_dir), "<tmp>"),
+           "test_acc": acc, "test_acc_without_distributed": reference,
+           "jax_cli_test_acc_seed0": JAX_CLI_ACC[0],
+           "tolerance": TRAIN_CLI_ACC_TOL, "checkpoints": files,
+           "wall_s": wall}
+    emit({"phase": "train_cli_ddp", **out})
+    return out
+
+
+@contextlib.contextmanager
+def shard_calls():
+    """K1-K4 wrapped to count their calls by the data shard that made
+    them (``parallel/mesh.current_shard``); on a CUDA tensor a call is a
+    launch. Yields the ``Counter`` of ``(kernel, shard)``."""
+    from handwritten_chinese_ocr_samples_torch.parallel import mesh
+    mods = {"topk_logsoftmax": k1, "peek_cache_attention": k2,
+            "lse_rows": k3, "gather_write_kv": k4}
+    counts = collections.Counter()
+    saved = {name: getattr(mod, name) for name, mod in mods.items()}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            counts[(name, mesh.current_shard())] += 1
+            return fn(*args, **kw)
+        return call
+
+    for name, mod in mods.items():
+        setattr(mod, name, counted(name, saved[name]))
+    try:
+        yield counts
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
+
+
+@contextlib.contextmanager
+def f32_recognizer():
+    """The eval driver's recognizer in f32 instead of bf16."""
+    from handwritten_chinese_ocr_samples_torch.models import registry
+    get = registry.get_model_info
+    registry.get_model_info = lambda *a, **k: get(
+        *a, **dict(k, dtype=torch.float32))
+    try:
+        yield
+    finally:
+        registry.get_model_info = get
+
+
+def phase_eval_dp(dev) -> dict:
+    """Eval ``-dp``: demo/hard's 150 test lines through the eval driver at
+    ``-b 10`` with two row shards on the one card (``run_benchmark(args,
+    devices=[cuda:0, cuda:0])``: one replica and one host thread each),
+    greedy and ``-ss`` (recognizer and LM in f32), against the same
+    command unsharded: the same 150 texts and CER, and on ``-ss`` K1-K4
+    launched from both shards. ``cli/test.py -dp 2`` on this one-card
+    machine stops with the JAX driver's message."""
+    import io
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    from handwritten_chinese_ocr_samples_torch.eval import driver
+    with open(os.path.join(DEMO_HARD, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        n_lines = sum(1 for line in f if line.strip())
+    n_lines -= n_lines % DP_BATCH          # full batches: 150 lines
+    out = {}
+    for name, flags in DP_COMMANDS.items():
+        argv = ["-m", "hctr-tiny", "-f", f"{DEMO_ASSETS}/hctr_tiny.pt",
+                "-i", DEMO_HARD, "-bm", "-b", str(DP_BATCH), "-tv", "-d",
+                str(dev), *flags]
+        runs = {}
+        for shards in (None, [dev, dev]):
+            args = eval_cli.build_argparser().parse_args(argv)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with (f32_recognizer(), shard_calls() as calls,
+                  contextlib.redirect_stdout(buf)):
+                result = driver.run_benchmark(args, devices=shards)
+            texts = [ln[5:] for ln in buf.getvalue().splitlines()
+                     if ln.startswith("PRE: ")]
+            runs["sharded" if shards else "one"] = (
+                texts, result, dict(calls), time.perf_counter() - t0)
+        (one, one_cer, _, one_s), (two, two_cer, calls, two_s) = (
+            runs["one"], runs["sharded"])
+        differ = [i for i, (a, b) in enumerate(zip(one, two)) if a != b]
+        check(len(one) == len(two) == n_lines and not differ
+              and one_cer == two_cer,
+              f"eval_dp {name}: {len(one)}/{len(two)} texts, lines "
+              f"differing {differ[:10]}, CER {one_cer} vs {two_cer}")
+        by_shard = {f"{k}@{s}": n for (k, s), n in sorted(
+            calls.items(), key=lambda kv: (kv[0][0], str(kv[0][1])))}
+        if name == "lm_ss":
+            check(all(calls.get((k, s), 0) > 0 for k in launch_counts()
+                      for s in (0, 1)),
+                  f"eval_dp: K1-K4 not launched from both shards: "
+                  f"{by_shard}")
+        out[name] = {"cer": two_cer, "cer_unsharded": one_cer,
+                     "lines": len(two), "lines_differing": 0,
+                     "launches_by_shard": by_shard, "wall_s": two_s,
+                     "wall_s_unsharded": one_s}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_cli.main(["-m", "hctr-tiny", "-f",
+                           f"{DEMO_ASSETS}/hctr_tiny.pt", "-i", DEMO_HARD,
+                           "-bm", "-b", "8", "-dp", "2", "-d", "cuda"])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    n = torch.cuda.device_count()
+    check(raised == f"--data-parallel 2 exceeds the {n} visible devices",
+          f"eval_dp: cli/test.py -dp 2 on {n} card(s) raised {raised!r}")
+    emit({"phase": "eval_dp", "batch": DP_BATCH, "shards": [str(dev)] * 2,
+          "recognizer": "hctr-tiny (trained, f32)", **out,
+          "cli_dp2_error": raised})
+    return out
+
+
+def default_merge_texts(dev, paths, batch: int) -> dict:
+    """The beam and ``-ss`` texts of demo/hard's lines on the default
+    merges (``demo_hard``'s, when it has not run)."""
+    engines = demo_hard_engines(dev)
+    return {route: engines[route].infer_files_batched(
+        paths, batch_size=batch)[0] for route in ("beam", "ss")}
+
+
+def phase_merges(dev, default_texts: dict | None) -> dict:
+    """The two opt-in merges on demo/hard's 150 lines, served at batch 8:
+    the plain beam with ``HCTR_DENSE_MERGE=0`` (the sort merge) and ``-ss``
+    with ``HCTR_LM_DENSE_MERGE=1`` (the LM search's dense merge), read when
+    the engines are built; texts against the default merges' (from
+    ``demo_hard``), each differing line printed with its score gap (on
+    ``-ss`` it must be a near-tie). Returns the ``-ss`` run's launches."""
+    with open(os.path.join(DEMO_ASSETS, "texts.json"), encoding="utf-8") as f:
+        committed = json.load(f)
+    files = committed["files"]
+    paths = [os.path.join(DEMO_HARD, "test", name) for name in files]
+    if default_texts is None:
+        default_texts = default_merge_texts(dev, paths, committed["batch"])
+    env = {"HCTR_DENSE_MERGE": "0", "HCTR_LM_DENSE_MERGE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        engines = demo_hard_engines(dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    check(not engines["beam"].route.dense_merge
+          and engines["ss"]._lm_beam._dense,
+          "merges: the variables did not pick the variants")
+    out, counts = {}, {}
+    for route, variant in (("beam", "sort"), ("ss", "dense")):
+        engine = engines[route]
+        reset_launches()          # ---- main path: the variant's route
+        texts, lps = engine.infer_files_batched(
+            paths, batch_size=committed["batch"])
+        launched = launch_counts()  # ---- end of main path
+        if route == "ss":
+            counts = launched
+        differ = []
+        for i, (a, b) in enumerate(zip(texts, default_texts[route])):
+            if a == b:
+                continue
+            _, x = engine.preprocess_bucketed(paths[i])
+            with torch.inference_mode():
+                logits = engine.model(
+                    (torch.from_numpy(x).to(dev).float() - 127.5) / 127.5)
+                gap = (min_gap(engine, logits, route) if route == "ss"
+                       else top2_gap(logits))
+            differ.append({"file": files[i], "variant": texts[i],
+                           "default": default_texts[route][i],
+                           "gap": gap})
+            emit({"phase": "merges_difference", "route": route, **differ[-1]})
+            check(route == "beam" or gap < NEAR_TIE,
+                  f"merges {route}: {files[i]} differs from the default "
+                  f"merge beyond a near-tie: {differ[-1]}")
+        out[route] = {"merge": variant, "lines": len(texts),
+                      "lines_differing": len(differ),
+                      "lines_per_s": lps, "launches": launched}
+    check(out["beam"]["launches"]["topk_logsoftmax"] > 0
+          and all(v > 0 for v in counts.values()),
+          f"merges launches {out}")
+    emit({"phase": "merges", "env": env, **out})
+    return counts
+
+
+def _dgrl_bytes(lines: list, bits: int) -> bytes:
+    """A DGRL page: ``lines`` of ``(text, top, left, (H, W) uint8)``."""
+    import struct
+    illustr = b"#seeded\x00"
+    body = [struct.pack("<I", 36 + len(illustr)), b"DGRL".ljust(8, b"\x00"),
+            illustr, b"GB".ljust(20, b"\x00"), struct.pack("<HH", 2, bits),
+            struct.pack("<III", 600, 2000, len(lines))]
+    for text, top, left, img in lines:
+        body += [struct.pack("<I", len(text)), text.encode("gb18030"),
+                 struct.pack("<IIII", top, left, *img.shape)]
+        body.append(np.packbits(img < 128, axis=1).tobytes() if bits == 1
+                    else img.tobytes())
+    return b"".join(body)
+
+
+def _dgr_bytes(lines: list) -> bytes:
+    """A DGR page: ``lines`` of words ``(hex, top, left, (H, W) uint8)``."""
+    import struct
+    illustr = b"#seeded\x00"
+    body = [struct.pack("<i", 36 + len(illustr)), b"DGR".ljust(8, b"\x00"),
+            illustr, b"GB".ljust(20, b"\x00"), struct.pack("<hh", 2, 8),
+            struct.pack("<iii", 600, 2000, len(lines))]
+    for words in lines:
+        body.append(struct.pack("<i", len(words)))
+        for hx, top, left, img in words:
+            body += [bytes.fromhex(hx), struct.pack("<hhhh", top, left,
+                                                    *img.shape),
+                     img.tobytes()]
+    return b"".join(body)
+
+
+def prep_dataset(folder: str, root: str, chars: str) -> list:
+    """The png + hex label pairs of ``folder`` as the port's test split
+    (``flow.generate_text_img_gt``) under ``root``; returns the dataset's
+    ``(image, text)`` items."""
+    from handwritten_chinese_ocr_samples_torch.data.dataset import (
+        ImageDataset)
+    from handwritten_chinese_ocr_samples_torch.data.prep import flow
+    os.makedirs(root)
+    shutil.copytree(folder, os.path.join(root, "test"))
+    flow.generate_text_img_gt(folder, os.path.join(root,
+                                                   "test_img_id_gt.txt"))
+    with open(os.path.join(root, "chars_list.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(chars) + "\n")
+    ds = ImageDataset(root, (1, 128), "test")
+    return [ds[i] for i in range(len(ds))]
+
+
+def phase_prep(dev) -> dict:
+    """The port's DGRL and DGR tools on seeded pages: two DGRL pages (gray
+    and 1-bit) in a zip through ``data/prep/dgrl.dgrl2png`` at height 128;
+    a DGR list of two pages through ``data/prep/dgr``, extraction, then
+    synthesis with seeded glyph PNGs until they run out. Every written line
+    loads through the port's dataset at height 128 with its text: the
+    hex labels round-trip to the pages' texts, and the synthesized lines'
+    labels are the kept alpha/symbol codes and the glyph codes in order."""
+    import io
+    import tempfile
+    import zipfile
+    import cv2
+    from handwritten_chinese_ocr_samples_torch.data.prep import dgr, dgrl
+    rng = np.random.default_rng(PREP_SEED)
+    vocab = HARD_VOCAB[:40]
+
+    def ink(h, w):
+        img = np.full((h, w), 255, np.uint8)
+        mask = rng.random((h, w)) < 0.3
+        img[mask] = rng.integers(0, 120, int(mask.sum()))
+        return img
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- DGRL: a gray page and a 1-bit page in a zip
+        texts = []
+        with zipfile.ZipFile(os.path.join(tmp, "pages.zip"), "w") as z:
+            for p, bits in enumerate((8, 1)):
+                lines = []
+                for _ in range(3):
+                    text = "".join(rng.choice(vocab, int(rng.integers(3, 9))))
+                    lines.append((text, int(rng.integers(0, 400)),
+                                  int(rng.integers(0, 100)),
+                                  ink(int(rng.integers(60, 300)),
+                                      int(rng.integers(200, 1500)))))
+                    texts.append(text)
+                z.writestr(f"page{p}.dgrl", _dgrl_bytes(lines, bits))
+        t0 = time.perf_counter()
+        n, manifest = dgrl.dgrl2png(os.path.join(tmp, "pages.zip"),
+                                    os.path.join(tmp, "dgrl"), 128)
+        dgrl_s = time.perf_counter() - t0
+        with open(manifest, encoding="utf-8") as f:
+            listed = [ln.rstrip("\n").split(",", 1)[1] for ln in f]
+        os.remove(manifest)
+        items = prep_dataset(os.path.join(tmp, "dgrl"),
+                             os.path.join(tmp, "dgrl_data"), vocab)
+        check(n == len(texts) and listed == texts and sorted(
+            t for _, t in items) == sorted(texts) and all(
+            im.shape[0] == 128 for im, _ in items),
+            f"prep dgrl: {n} lines, manifest {listed}, dataset "
+            f"{[t for _, t in items]}")
+        out["dgrl"] = {"pages": 2, "lines": n, "seconds": dgrl_s}
+        # ---- DGR: extraction and synthesis
+        codes = [ch.encode("gb18030").hex().upper() for ch in vocab]
+        keep = codes[:2]
+        pages, words_of = [], []
+        for p in range(2):
+            lines = []
+            for _ in range(3):
+                words, x = [], 10
+                for _ in range(int(rng.integers(2, 7))):
+                    h, w = int(rng.integers(40, 180)), int(rng.integers(30,
+                                                                        90))
+                    words.append((codes[int(rng.integers(0, 10))],
+                                  int(rng.integers(0, 60)), x, ink(h, w)))
+                    x += w + int(rng.integers(-5, 10))
+                lines.append(words)
+                words_of.append([w[0] for w in words])
+            path = os.path.join(tmp, f"doc{p}.dgr")
+            with open(path, "wb") as f:
+                f.write(_dgr_bytes(lines))
+            pages.append(path)
+        lst = os.path.join(tmp, "list.txt")
+        with open(lst, "w") as f:
+            f.write("\n".join(pages) + "\n")
+        os.makedirs(os.path.join(tmp, "glyphs"))
+        rows = []
+        for i in range(30):
+            g = os.path.join(tmp, "glyphs", f"g{i}.png")
+            cv2.imwrite(g, ink(64, 64))
+            rows.append((g, codes[10 + i % 30]))
+        with open(os.path.join(tmp, "gt.csv"), "w") as f:
+            f.write("".join(f"{g},{c}\n" for g, c in rows))
+        with open(os.path.join(tmp, "alpha.txt"), "w") as f:
+            f.write("\n".join(keep) + "\n")
+        ext, syn = os.path.join(tmp, "ext"), os.path.join(tmp, "syn")
+        os.makedirs(ext)
+        os.makedirs(syn)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(dgr.main([lst, ext]) == 0, "prep dgr: extraction failed")
+            check(dgr.main([lst, syn, os.path.join(tmp, "gt.csv"),
+                            os.path.join(tmp, "alpha.txt")]) == 0,
+                  "prep dgr: synthesis failed")
+        dgr_s = time.perf_counter() - t0
+        to_text = {c: ch for c, ch in zip(codes, vocab)}
+        want_ext = sorted("".join(to_text[c] for c in w) for w in words_of)
+        got_ext = prep_dataset(ext, os.path.join(tmp, "ext_data"), vocab)
+        check(sorted(t for _, t in got_ext) == want_ext and all(
+            im.shape[0] == 128 for im, _ in got_ext),
+            f"prep dgr extraction: {[t for _, t in got_ext]}")
+        # synthesis: kept codes stay, the others take the glyph codes in
+        # page, line and word order, pass after pass, until the 30 run out
+        stream, want_syn, it = iter(rows), {}, 1
+        while True:
+            dry = False
+            for p, page in enumerate(pages):
+                for li in range(3):
+                    labels = []
+                    for c in words_of[p * 3 + li]:
+                        if c in keep:
+                            labels.append(c)
+                            continue
+                        nxt = next(stream, None)
+                        if nxt is None:
+                            dry = True
+                            break
+                        labels.append(nxt[1])
+                    if dry:
+                        break
+                    want_syn[f"doc{p}-L{li + 1}-S{it}"] = "".join(
+                        to_text[c] for c in labels)
+                if dry:
+                    break
+            if dry:
+                break
+            it += 1
+        got_syn = prep_dataset(syn, os.path.join(tmp, "syn_data"), vocab)
+        check(sorted(t for _, t in got_syn) == sorted(want_syn.values())
+              and len(os.listdir(syn)) == 2 * len(want_syn),
+              f"prep dgr synthesis: {len(got_syn)} lines, want "
+              f"{len(want_syn)}")
+        out["dgr"] = {"pages": 2, "lines_extracted": len(got_ext),
+                      "lines_synthesized": len(got_syn), "passes": it,
+                      "seconds": dgr_s}
+    emit({"phase": "prep", **out})
+    return out
+
+
 def main() -> int:
     try:
         return smoke()
@@ -4400,6 +5068,16 @@ def smoke() -> int:
         phase_pth(dev)
         phase_classify_cli(dev, started)
         return 0
+    if "--dist" in sys.argv[1:]:     # multi-device, prep and the merges
+        import tempfile
+        phase_ddp_train(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            started = start_train_cli_ddp(tmp, plain=True)
+            phase_prep(dev)
+            phase_merges(dev, None)
+            phase_eval_dp(dev)
+            phase_train_cli_ddp(started, None)
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 and I1 alone, times first
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -4421,7 +5099,7 @@ def smoke() -> int:
                                                  lm)
     del lm
     ss_kernels = phase_ss_kernels(dev, recorded)
-    paths["demo_hard_ss"] = phase_demo_hard(dev)
+    paths["demo_hard_ss"], demo_texts = phase_demo_hard(dev)
     int8_paths.update(phase_demo_hard_int8(dev))
     phase_demo_hard_host(dev)
     paths["eval_lm_ss"], eval_int8 = phase_eval_demo_hard(dev)
@@ -4432,13 +5110,24 @@ def smoke() -> int:
     classify = phase_classify_full(dev)
     # the CLI runs, and the phases that time nothing, go together
     started = start_classify_cli(dev)
-    phase_train_cli(dev)
+    cli = phase_train_cli(dev)
     phase_classify_parity(dev)
     profiled_k1 = phase_profile_eval(dev)
     phase_pth(dev)
     phase_classify_cli(dev, started)
     paths["lm_train_ss"] = phase_lm_train(dev)
     phase_ngram_train()
+    # multi-device (one card: a group of one over NCCL, two gloo ranks),
+    # the DGRL/DGR prep, the opt-in merges and -dp; the CLI under
+    # torch.distributed.run in the background beside the last three
+    import tempfile
+    phase_ddp_train(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        started = start_train_cli_ddp(tmp)
+        phase_prep(dev)
+        paths["merges_ss"] = phase_merges(dev, demo_texts)
+        dp_paths = phase_eval_dp(dev)
+        phase_train_cli_ddp(started, cli["test_acc"][0])
     # the kernels' launches on the skip route's main paths
     skip = {name: sum(c[name] for c in paths.values())
             for name in launch_counts()}
@@ -4446,7 +5135,9 @@ def smoke() -> int:
           "lm_full_search": lm_counts, **paths, "skip_route": skip,
           "int8_conv": int8_paths, "training": train["k1_k4_launches"],
           "classify_training": classify["k1_k4_i1_launches"],
-          "profile_eval_topk_logsoftmax": profiled_k1})
+          "profile_eval_topk_logsoftmax": profiled_k1,
+          "eval_dp_by_shard": {k: v["launches_by_shard"]
+                               for k, v in dp_paths.items()}})
     ss_err = {name: max([t["max_abs_err"] for key, t in ss_kernels.items()
                          if key.split("@")[0] == name] or [0.0])
               for name in skip}

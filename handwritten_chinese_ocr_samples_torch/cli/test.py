@@ -27,8 +27,10 @@ flax_to_torch`` of a JAX checkpoint), a checkpoint of the port's trainer
 CPU. ``--profile DIR`` writes a ``torch.profiler`` trace of the run (with
 ``-gs``, of the first grid point) into DIR. ``-m innovation`` stops with an
 error, as the JAX CLI fails on the classifier's ``(B, classes)`` logits:
-``cli/train.py -m innovation --test`` evaluates it. ``-dp`` stops with an
-error that names its ROADMAP item.
+``cli/train.py -m innovation --test`` evaluates it. ``-dp N`` shards each
+batch's rows over the first N cards from this one process (one weight
+replica a card; ``-d cpu``: N CPU shards), as the JAX CLI shards over N
+chips; N must divide ``-b`` and not exceed the visible cards.
 """
 
 from __future__ import annotations
@@ -36,12 +38,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-
-# flag -> (default, what is missing)
-_UNPORTED = {
-    "data_parallel": (0, "data-parallel eval over several cards "
-                         "(ROADMAP.md queue 1, item 8)"),
-}
 
 
 def build_argparser():
@@ -124,6 +120,10 @@ def build_argparser():
                       help="int8-quantize the fused LM's FF and logits "
                            "matmuls (per-channel weight scales, dynamic "
                            "activation scale; attention/KV stay bf16)")
+    args.add_argument("-dp", "--data-parallel", dest="data_parallel",
+                      type=int, metavar="N", default=0,
+                      help="shard eval batches over N devices (data-"
+                           "parallel decode; 0 = single device)")
     args.add_argument("--int8", dest="int8", action="store_true",
                       help="post-training int8 quantization of the "
                            "recognizer convs (calibrated on the first "
@@ -151,11 +151,6 @@ def build_argparser():
     args.add_argument("-bl", "--beta-lower", type=float, default=4.2)
     args.add_argument("-bu", "--beta-upper", type=float, default=6.6)
     args.add_argument("-bc", "--beta-count", type=int, default=25)
-    later = parser.add_argument_group(
-        "Not ported yet", "(ROADMAP.md); setting any of these stops with "
-        "an error")
-    later.add_argument("-dp", "--data-parallel", dest="data_parallel",
-                       type=int, metavar="N", default=0)
     return parser
 
 
@@ -181,13 +176,7 @@ def run_profiled(args):
 def main(argv=None):
     """Returns the CER (``-bm``), the best ``(lm_panelty, len_bonus, CER)``
     (``-gs``), or None (single mode)."""
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-    unported = {k: what for k, (default, what) in _UNPORTED.items()
-                if getattr(args, k) != default}
-    if unported:
-        parser.error(f"not ported yet: {', '.join(unported)}: "
-                     + "; ".join(sorted(set(unported.values()))))
+    args = build_argparser().parse_args(argv)
     if not args.grid_search:
         return run_profiled(args)
     # grid search over (alpha=lm_panelty, beta=len_bonus), `test.py:349-382`

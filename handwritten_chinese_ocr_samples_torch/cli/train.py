@@ -13,7 +13,21 @@ the isolated-character classifier (``-d`` holds 128x128 glyphs, each
 labelled with its character: ``data/prep/gnt.py`` and ``flow.py`` make
 them), with cross-entropy and top-1 test accuracy. ``--profile DIR``
 writes a ``torch.profiler`` trace of steps 10-30 of the first epoch into
-DIR. ``--distributed`` stops with an error naming its ROADMAP item.
+DIR.
+
+``--distributed`` trains data-parallel with one process per card, as the
+reference does (`main.py:157-237`); the JAX CLI drives every local chip
+from one process instead. Launch it with ``torch.distributed.run``::
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m handwritten_chinese_ocr_samples_torch.cli.train --distributed \
+        -m hctr -d <data_dir> -b 16 ...
+
+Each process trains on ``cuda:LOCAL_RANK`` (``--device cpu``: gloo ranks
+on the CPU) over ``-b / nproc`` rows of every batch of ``-b``, so the
+step is the one-process step on the whole batch (``train/step.py``); only
+rank 0 prints and writes checkpoints. Without the flag the port trains on
+one card.
 """
 
 from __future__ import annotations
@@ -22,10 +36,6 @@ import argparse
 import random
 
 import numpy as np
-
-_UNPORTED = {
-    "distributed": "multi-device training (ROADMAP.md queue 1, item 8)",
-}
 
 
 def build_argparser():
@@ -88,17 +98,14 @@ def build_argparser():
                       help="write a torch.profiler trace of train steps "
                            "10-30 of the first epoch into DIR (view with "
                            "tensorboard --logdir DIR or Perfetto)")
-    later = parser.add_argument_group(
-        "Not ported yet", "setting any of these stops with an error")
-    later.add_argument("--distributed", action="store_true")
+    args.add_argument("--distributed", action="store_true",
+                      help="data-parallel training, one process per card "
+                           "(run under python -m torch.distributed.run)")
     return parser
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {what} is not ported yet")
 
     import torch
     if args.seed is not None:
@@ -107,14 +114,20 @@ def main(argv=None):
         torch.manual_seed(args.seed)
 
     from ..models.registry import get_model_info
+    from ..parallel import mesh
     from ..train.trainer import Trainer, TrainerConfig
+
+    device = args.device
+    if args.distributed:
+        device = str(mesh.initialize_distributed(args.device))
 
     extra = {"remat": True} if (args.remat
                                 and args.model_type == "hctr") else {}
     model, characters = get_model_info(args.model_type, data_dir=args.data,
                                        dtype=torch.bfloat16, **extra)
-    print(f"Character vocabulary: {len(characters)}, "
-          f"Model output classes: {len(characters) + 2}")
+    if mesh.is_main():
+        print(f"Character vocabulary: {len(characters)}, "
+              f"Model output classes: {len(characters) + 2}")
 
     cfg = TrainerConfig(
         data=args.data, model_type=args.model_type,
@@ -128,8 +141,12 @@ def main(argv=None):
         bucket_step=args.bucket_step, use_width_mask=args.width_mask,
         out_dir=args.out_dir, profile_dir=args.profile,
         optimizer="" if args.optimizer == "model" else args.optimizer,
-        device=args.device)
-    Trainer(cfg, model, characters).fit()
+        device=device)
+    try:
+        Trainer(cfg, model, characters).fit()
+    finally:
+        if args.distributed and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -88,12 +88,14 @@ class AlignCollate:
         self.max_width = max_width
         self.bucket_spec = bucket_spec
 
-    def __call__(self, batch) -> dict:
+    def __call__(self, batch, min_width: int = 0) -> dict:
+        """``min_width``: collate as if the batch also held a line that
+        wide (a row shard collated as its whole batch is)."""
         batch = [x for x in batch if x is not None]
         images, labels = zip(*batch)
         labels = list(labels)
 
-        maxW = max(img.shape[1] for img in images)
+        maxW = max(max(img.shape[1] for img in images), min_width)
         if self.max_width and maxW > self.max_width:
             maxW = self.max_width
 

@@ -17,6 +17,11 @@ design, so the port's eval sees the same batches in the same order:
   * **Sharding**: ``shard_id/num_shards`` slice the batch list per process
     the way ``DistributedSampler`` does per rank (`main.py:280-282`), with
     ``set_epoch``-style reshuffling via the ``seed + epoch`` fold.
+  * **Row shards** (``rows=(i, n)``, the data-parallel trainer's): every
+    process plans the same global batches and takes rows ``[i * B / n,
+    (i + 1) * B / n)`` of each, decoding only those; the shard is padded
+    to its whole batch's width, which the PNG headers give, so its rows
+    are the whole batch's rows.
 """
 
 from __future__ import annotations
@@ -62,7 +67,11 @@ class DataLoader:
         shard_id: int = 0,
         num_shards: int = 1,
         drop_last: bool = True,
+        rows: Tuple[int, int] = (0, 1),
     ):
+        if batch_size % rows[1]:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
+                             f"{rows[1]} row shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -74,6 +83,7 @@ class DataLoader:
         self.shard_id = shard_id
         self.num_shards = num_shards
         self.drop_last = drop_last
+        self.rows = rows
         self.epoch = 0
         self._widths: Optional[np.ndarray] = None
 
@@ -119,8 +129,15 @@ class DataLoader:
 
     # ------------------------------------------------------------------ iter
     def _load_batch(self, idxs: np.ndarray):
-        items = list(self._pool.map(self.dataset.__getitem__, idxs))
-        return self.collate_fn(items)
+        i, n = self.rows
+        if n == 1:
+            items = list(self._pool.map(self.dataset.__getitem__, idxs))
+            return self.collate_fn(items)
+        width = int(self._item_widths()[idxs].max())
+        s = len(idxs) // n
+        items = list(self._pool.map(self.dataset.__getitem__,
+                                    idxs[i * s: (i + 1) * s]))
+        return self.collate_fn(items, min_width=width)
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._batches()

@@ -28,14 +28,33 @@ values. They pick which search is built, never a result; keeping them keeps
 the overflow and escalation behaviour identical. The search is synchronous,
 so ``decode`` returns the result and there is no deferred
 ``PendingDecode``.
+
+**Data shards** (``shards=[device, ...]``, the JAX package's ``mesh=``;
+``cli/test.py -dp``): lines are independent, so a batch splits into
+``len(shards)`` row shards, each searched on its own device with its own
+LM replica from its own host thread, so that the host-bound searches
+overlap. The sizing is the whole batch's (each shard's maxima combined),
+groups form within each shard, and an overflow on any shard decodes every
+shard again at the escalated context. A batch that the shard count does
+not divide raises.
+
+``dense_merge`` picks the search's merge (``beam_lm_device``); None reads
+``HCTR_LM_DENSE_MERGE`` (``1``: the dense merge; else the sort merge), as
+the JAX driver does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
+
 import torch
 
 from ..ops.topk_logsoftmax import PRUNE
-from .beam_lm_device import (_DENSE, count_peek_rows, make_count_sizing,
+from ..parallel.mesh import canonical, on_shard, shard_rows
+from .beam_lm_device import (count_peek_rows, make_count_sizing,
                              make_count_stats, make_lm_beam_search)
 
 STABLE_CTX = (144, 160, 192, 256, 320, 384, 448, 512)
@@ -71,10 +90,18 @@ class AdaptiveLMBeam:
                  skip_search: bool = True, group_size: int = 8,
                  lm_ctx: int = 0, seg_budget: int = 0, run_max: int = 8,
                  ctx_ladder: int = 112, fused_commit: bool = False,
-                 dense_merge: bool = False, prune: float = PRUNE):
-        if dense_merge:
-            raise NotImplementedError(_DENSE)
+                 dense_merge: Optional[bool] = None, prune: float = PRUNE,
+                 shards: Optional[Sequence[torch.device]] = None):
+        if dense_merge is None:
+            dense_merge = os.environ.get("HCTR_LM_DENSE_MERGE", "") == "1"
+        self._dense = bool(dense_merge)
         self._clm = clm
+        # one LM replica a shard, copied once (shards on one device share)
+        self.shards = (None if shards is None
+                       else [canonical(d) for d in shards])
+        self._clms = ([clm.replica(d) for d in self.shards]
+                      if self.shards else [clm])
+        self._pool = None
         self._c2l = codec2lm
         self._l2c = lm2codec
         self._kw = dict(beam_size=beam_size, depth=depth,
@@ -142,21 +169,25 @@ class AdaptiveLMBeam:
         keep = (arg != 0) & (arg != self.unknown_id) & (arg != prev)
         return int(keep.sum(1).max()) if arg.numel() else 0
 
-    def _size(self, cand_idx, n_above, T: int) -> None:
-        """Size the context, and for the skip search the segment budget,
-        the peek rows and the ladder, from one copy of the batch's
-        maxima."""
+    def _maxima(self, cand_idx, n_above) -> List[int]:
+        """The batch's sizing scalars, from one copy: the largest greedy
+        character count, and for the skip search the largest end step,
+        segment count and count above prune, then the ladder's bound
+        (a minimum)."""
         if not self.skip:
-            chars_max = self._greedy_chars(cand_idx)
-        else:
-            if self._sizing is None:
-                kw = dict(unknown_id=self.unknown_id, run_max=self.run_max)
-                self._sizing = (make_count_sizing(**kw) if self._ladder_ctx
-                                else make_count_stats(**kw))
-            args = ((cand_idx, n_above, self._ladder_ctx)
-                    if self._ladder_ctx else (cand_idx, n_above))
-            chars_max, _, seg_max, na_max, *ladder_raw = (
-                self._sizing(*args).tolist())
+            return [self._greedy_chars(cand_idx)]
+        if self._sizing is None:
+            kw = dict(unknown_id=self.unknown_id, run_max=self.run_max)
+            self._sizing = (make_count_sizing(**kw) if self._ladder_ctx
+                            else make_count_stats(**kw))
+        args = ((cand_idx, n_above, self._ladder_ctx)
+                if self._ladder_ctx else (cand_idx, n_above))
+        return [int(v) for v in self._sizing(*args).tolist()]
+
+    def _size(self, maxima: List[int], T: int) -> None:
+        """Size the context, and for the skip search the segment budget,
+        the peek rows and the ladder, from ``_maxima``."""
+        chars_max = maxima[0]
         if not self._ctx_pinned:
             self._ctx = self._auto_ctx(chars_max)
         elif chars_max + 2 > self._ctx:
@@ -165,6 +196,7 @@ class AdaptiveLMBeam:
                 f"raise --lm-ctx or use 0 (auto)")
         if not self.skip:
             return
+        _, _, seg_max, na_max, *ladder_raw = maxima
         pr = count_peek_rows([na_max], depth=self._kw["depth"],
                              use_lm_pred=self._kw["use_lm_pred"])
         if pr > self._peek:
@@ -186,39 +218,85 @@ class AdaptiveLMBeam:
         else:
             self._ladder_k = 0
 
-    def search(self, group: int, **extra):
-        """The search at the current sizing (``extra``: e.g. a selection
-        hook)."""
+    def search(self, group: int, clm=None, **extra):
+        """The search at the current sizing, over ``clm`` (default: the
+        LM given; ``extra``: e.g. a selection hook)."""
+        clm = self._clm if clm is None else clm
+        kw = dict(lm_ctx=self._ctx, group_size=group,
+                  dense_merge=self._dense, **self._kw, **extra)
         if not self.skip:
-            return make_lm_beam_search(
-                self._clm, self._c2l, self._l2c, skip_search=False,
-                lm_ctx=self._ctx, group_size=group, **self._kw, **extra)
+            return make_lm_beam_search(clm, self._c2l, self._l2c,
+                                       skip_search=False, **kw)
         return make_lm_beam_search(
-            self._clm, self._c2l, self._l2c, skip_search=True,
-            lm_ctx=self._ctx, seg_budget=self._budget, group_size=group,
-            peek_rows=self._peek or None,
+            clm, self._c2l, self._l2c, skip_search=True,
+            seg_budget=self._budget, peek_rows=self._peek or None,
             ctx_ladder=((self._ladder_k, self._ladder_ctx)
                         if self._ladder_k else None),
-            fused_commit=self._fused, **self._kw, **extra)
+            fused_commit=self._fused, **kw)
 
     # ------------------------------------------------------------ decode
     def decode(self, cand_vals, cand_idx, logits, logz, blank_lp=None,
                n_above=None):
         """Size the search from the batch, run it and check its overflow
         flag, escalating the context and decoding again if it fired.
-        Device tensors in, ``(prefixes, lengths)`` out."""
-        B, T = cand_vals.shape[:2]
-        self._size(cand_idx, n_above, int(T))
+        Device tensors in, ``(prefixes, lengths)`` out. With shards the
+        batch's rows go to the shards (each moved to its device) and the
+        results come back in row order on the batch's device."""
+        args = (cand_vals, cand_idx, logits, logz, blank_lp, n_above)
+        if self.shards is None:
+            return self.decode_shards([args])[0]
+        B, n = cand_vals.shape[0], len(self.shards)
+        if B % n:
+            raise ValueError(
+                f"batch {B} not divisible by the {n} data shards: pad the "
+                f"batch or drop the shards")
+        parts = [tuple(None if a is None else
+                       shard_rows(a, n, i).to(self.shards[i])
+                       for a in args) for i in range(n)]
+        outs = self.decode_shards(parts)
+        return tuple(torch.cat([o[j].to(cand_vals.device) for o in outs])
+                     for j in range(2))
+
+    def decode_shards(self, parts: list) -> list:
+        """Decode row shards already on their shards' devices (``parts[i]``
+        the ``decode`` arguments of shard ``i``, every shard as many rows):
+        sized as their whole batch, searched from one thread a shard.
+        Returns each shard's ``(prefixes, lengths)``."""
+        maxima = [self._maxima(p[1], p[5]) for p in parts]
+        whole = [max(col) for col in zip(*maxima)]
+        if len(whole) > 4:                   # the ladder bound is a minimum
+            whole[4] = min(m[4] for m in maxima)
+        B, T = parts[0][0].shape[:2]
+        self._size(whole, int(T))
         self.last_group = pick_group_size(B, self.group_size)
-        args = (cand_vals, cand_idx, logits, logz)
-        if self.skip:
-            args += (blank_lp, n_above)
         while True:
-            prefixes, lengths, ovf = self.search(self.last_group)(*args)
-            if not bool(ovf.any()):
-                return prefixes, lengths
+            outs = self._map(self._search_shard, list(enumerate(parts)))
+            if not any(ovf for _, _, ovf in outs):
+                return [(p, l) for p, l, _ in outs]
             if self._ctx_pinned:
                 raise RuntimeError(
                     f"LM KV cache overflowed at pinned lm_ctx={self._ctx}; "
                     f"raise --lm-ctx or use 0 (auto)")
             self._ctx = self._escalated_ctx()
+
+    def _search_shard(self, item):
+        i, (cand_vals, cand_idx, logits, logz, blank_lp, n_above) = item
+        args = (cand_vals, cand_idx, logits, logz)
+        if self.skip:
+            args += (blank_lp, n_above)
+        clm = self._clms[i]
+        shard = (on_shard(i, clm.device) if self.shards is not None
+                 else contextlib.nullcontext())
+        with shard, torch.inference_mode():
+            prefixes, lengths, ovf = self.search(self.last_group, clm)(*args)
+            return prefixes, lengths, bool(ovf.any())
+
+    def _map(self, fn, items: list) -> list:
+        """``fn`` over ``items``, one host thread each when there are
+        several."""
+        if len(items) == 1:
+            return [fn(items[0])]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(len(items),
+                                            thread_name_prefix="lm-shard")
+        return list(self._pool.map(fn, items))

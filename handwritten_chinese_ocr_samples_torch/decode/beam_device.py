@@ -1,16 +1,20 @@
 """Batched CTC prefix beam search on the device (no LM).
 
-PyTorch port of the JAX package's ``decode/beam_device.py:91-336``, dense
-merge variant (its default, ``dense_merge_default()``):
+PyTorch port of the JAX package's ``decode/beam_device.py:91-345``:
 
   * beams are fixed-size tensors: prefixes ``(B, BM, L)``, lengths, blank
     and non-blank log-masses ``pb/pnb`` and a two-lane int32 rolling prefix
     hash ``h1/h2`` ``(B, BM)``; the hash arithmetic wraps at 32 bits as
     XLA's int32 does;
   * each frame enumerates ``BM * K`` extend/stay rows plus ``BM`` repeat
-    rows, merges rows of equal hash through an all-pairs equality matrix
-    (group representative = lowest row index; group log-sum-exp by max +
-    exp-sum) and keeps the best ``BM`` groups;
+    rows, merges rows of equal hash and keeps the best ``BM`` groups. The
+    merge (``merge_rows``, which the LM search shares) is the dense one
+    by default, as ``dense_merge_default()`` is in the JAX package: an
+    all-pairs equality matrix, group representative = lowest row index,
+    group log-sum-exp by max + exp-sum. ``HCTR_DENSE_MERGE=0`` picks the
+    sort merge: a stable sort on the key pair, payloads by gather, segment
+    starts and a segmented logaddexp; the two differ only in the low bits
+    of the merged masses;
   * the best-``BM`` selection orders as ``lax.top_k`` does: descending,
     ties to the lower index (a stable descending sort, not ``torch.topk``);
   * each sample searches up to its last greedy character + 4 frames; the
@@ -19,6 +23,8 @@ merge variant (its default, ``dense_merge_default()``):
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -83,6 +89,50 @@ def _segment_logaddexp_sorted(vals: torch.Tensor,
     return torch.where(mx <= _DEAD, NEG_INF, mx + s)
 
 
+def merge_rows(kh1, kh2, row_pb, row_pnb, row_score, row_dead, earlier,
+               dense: bool):
+    """Merge a frame's rows of equal key ``(kh1, kh2)`` (``(G, n)`` each;
+    ``earlier (n, n)``: row j < row i). Returns ``(pb_m, pnb_m, total,
+    order)`` in the merge's own row order: ``total`` is the group's
+    ``logaddexp(pb, pnb) + row_score`` at one row a group (the lowest
+    original row: the dense merge's representative, the sort merge's
+    segment start) and ``NEG_INF`` elsewhere; ``order[g, j]`` is the
+    original row at position ``j`` (None for the dense merge, whose order
+    is the original one)."""
+    if dense:
+        eq = ((kh1[:, :, None] == kh1[:, None, :])
+              & (kh2[:, :, None] == kh2[:, None, :]))            # (G, n, n)
+        is_first = ~(eq & earlier).any(-1)
+
+        def group_lse(x):
+            xs = x[:, None, :]
+            mx = torch.where(eq, xs, NEG_INF).amax(-1)
+            s = torch.where(eq, torch.exp(xs - mx[..., None]), 0.0).sum(-1)
+            return torch.where(mx <= _DEAD, NEG_INF, mx + torch.log(s))
+
+        pb_m, pnb_m = group_lse(row_pb), group_lse(row_pnb)
+        total = _logaddexp(pb_m, pnb_m) + row_score
+        return (pb_m, pnb_m, torch.where(is_first & ~row_dead, total,
+                                         NEG_INF), None)
+    order = _sort_rows(kh1, kh2)
+    kh1_s, kh2_s = kh1.gather(1, order), kh2.gather(1, order)
+    seg_start = torch.cat(
+        [torch.ones_like(kh1_s[:, :1], dtype=torch.bool),
+         (kh1_s[:, 1:] != kh1_s[:, :-1]) | (kh2_s[:, 1:] != kh2_s[:, :-1])],
+        1)
+    pb_m = _segment_logaddexp_sorted(row_pb.gather(1, order), seg_start)
+    pnb_m = _segment_logaddexp_sorted(row_pnb.gather(1, order), seg_start)
+    total = _logaddexp(pb_m, pnb_m) + row_score.gather(1, order)
+    return (pb_m, pnb_m, torch.where(seg_start & ~row_dead.gather(1, order),
+                                     total, NEG_INF), order)
+
+
+def dense_merge_default() -> bool:
+    """The plain beam's merge: dense unless ``HCTR_DENSE_MERGE`` is ``0``
+    or empty (the JAX package's ``dense_merge_default``)."""
+    return os.environ.get("HCTR_DENSE_MERGE", "1") not in ("0", "")
+
+
 def _end_steps(first: torch.Tensor, unknown_id: int, blank_id: int,
                suffix_frames: int) -> torch.Tensor:
     """Per sample: the frame after the last greedy character, + suffix."""
@@ -98,8 +148,9 @@ def _end_steps(first: torch.Tensor, unknown_id: int, blank_id: int,
 def beam_search_from_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, *,
                           beam_size: int = 10, unknown_id: int,
                           blank_id: int = 0, len_bonus: float = 0.0,
-                          suffix_frames: int = 4):
-    """Prefix beam search over per-frame top-K candidates.
+                          suffix_frames: int = 4, dense_merge: bool = True):
+    """Prefix beam search over per-frame top-K candidates (``dense_merge``:
+    the merge, see ``merge_rows``).
 
     ``cand_vals`` ``(B, T, K)`` f32 log-probs (descending) and ``cand_idx``
     ``(B, T, K)`` int32 classes -> ``(prefixes (B, T) int32, lengths (B,)
@@ -171,28 +222,19 @@ def beam_search_from_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, *,
                           torch.where(row_is_ext, eh2, ph2))
         row_len = lengths[:, row_parent] + row_is_ext.to(torch.int32)
 
-        # ---- dense merge: all-pairs hash equality
-        eq = ((kh1[:, :, None] == kh1[:, None, :])
-              & (kh2[:, :, None] == kh2[:, None, :]))            # (B, n, n)
-        is_first = ~(eq & earlier).any(-1)
-
-        def group_lse(x):
-            xs = x[:, None, :]
-            mx = torch.where(eq, xs, NEG_INF).amax(-1)
-            s = torch.where(eq, torch.exp(xs - mx[..., None]), 0.0).sum(-1)
-            return torch.where(mx <= _DEAD, NEG_INF, mx + torch.log(s))
-
-        pb_m, pnb_m = group_lse(row_pb), group_lse(row_pnb)
-        total = _logaddexp(pb_m, pnb_m) + row_len.float() * len_bonus
-        total = torch.where(is_first & ~row_dead, total, NEG_INF)
+        # ---- merge rows of equal hash
+        pb_m, pnb_m, total, order = merge_rows(
+            kh1, kh2, row_pb, row_pnb, row_len.float() * len_bonus,
+            row_dead, earlier, dense_merge)
 
         # ---- best BM groups, ordered as lax.top_k
-        order = torch.sort(total, dim=1, descending=True,
-                           stable=True).indices[:, :BM]          # (B, BM)
-        sel_alive = torch.gather(total, 1, order) > _DEAD
-        sel_parent = row_parent[order]
-        sel_ext = torch.gather(row_is_ext, 1, order)
-        sel_char = torch.gather(row_char, 1, order)
+        top = torch.sort(total, dim=1, descending=True,
+                         stable=True).indices[:, :BM]            # (B, BM)
+        pick = top if order is None else order.gather(1, top)
+        sel_alive = torch.gather(total, 1, top) > _DEAD
+        sel_parent = row_parent[pick]
+        sel_ext = torch.gather(row_is_ext, 1, pick)
+        sel_char = torch.gather(row_char, 1, pick)
 
         new_prefixes = torch.gather(
             prefixes, 1, sel_parent[..., None].expand(B, BM, L))
@@ -209,9 +251,9 @@ def beam_search_from_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, *,
         prefixes = torch.where(act[..., None], new_prefixes, prefixes)
         lengths = torch.where(act, par_len + sel_ext.to(torch.int32), lengths)
         pb = torch.where(act, torch.where(
-            sel_alive, torch.gather(pb_m, 1, order), NEG_INF), pb)
+            sel_alive, torch.gather(pb_m, 1, top), NEG_INF), pb)
         pnb = torch.where(act, torch.where(
-            sel_alive, torch.gather(pnb_m, 1, order), NEG_INF), pnb)
+            sel_alive, torch.gather(pnb_m, 1, top), NEG_INF), pnb)
         h1 = torch.where(act, torch.where(sel_ext, nh1, par_h1), h1)
         h2 = torch.where(act, torch.where(sel_ext, nh2, par_h2), h2)
 
@@ -221,11 +263,14 @@ def beam_search_from_topk(cand_vals: torch.Tensor, cand_idx: torch.Tensor, *,
 
 def beam_search_fused(logits: torch.Tensor, *, beam_size: int = 10,
                       depth: int = 10, unknown_id: int, blank_id: int = 0,
-                      len_bonus: float = 0.0, suffix_frames: int = 4):
+                      len_bonus: float = 0.0, suffix_frames: int = 4,
+                      dense_merge: bool = True):
     """Serving entry: raw ``(B, T, D)`` f32 logits -> the fused log-softmax +
     top-K (kernel K1 on the card) -> the prefix beam search. The ``(B, T,
-    D)`` log-prob tensor is never materialised."""
+    D)`` log-prob tensor is never materialised. Callers pass
+    ``dense_merge=dense_merge_default()`` to honour ``HCTR_DENSE_MERGE``."""
     cand_vals, cand_idx, _blank, _n_above = topk_logsoftmax(logits, k=depth)
     return beam_search_from_topk(
         cand_vals, cand_idx, beam_size=beam_size, unknown_id=unknown_id,
-        blank_id=blank_id, len_bonus=len_bonus, suffix_frames=suffix_frames)
+        blank_id=blank_id, len_bonus=len_bonus, suffix_frames=suffix_frames,
+        dense_merge=dense_merge)

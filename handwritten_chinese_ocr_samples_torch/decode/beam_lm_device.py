@@ -9,7 +9,8 @@ The full search searches every frame up to a line's last greedy character
     candidates: each beam's top-M next characters from its LM distribution,
     whose CTC log-prob is gathered from the raw logits;
   * prefix extension with pb/pnb bookkeeping, rows of equal prefix merged by
-    a stable sort on a two-lane prefix hash and a segmented logaddexp;
+    a stable sort on a two-lane prefix hash and a segmented logaddexp (or,
+    with ``dense_merge``, through an all-pairs equality matrix);
   * score ``(lm(prefix) + lm(suffix)) * lm_panelty + len * len_bonus``: the
     prefix part is kept incrementally, the suffix part (the next greedy
     characters, which change with the frame) comes from a grouped
@@ -55,11 +56,7 @@ from ..lm.cached import CachedLM, LMCache
 from ..ops import logits_lse, peek_attention
 from ..ops.topk_logsoftmax import PRUNE
 from .beam_device import (_DEAD, _DEAD_KEY, _H1_SEED, _H2_SEED, NEG_INF,
-                          _end_steps, _hash_extend, _logaddexp,
-                          _segment_logaddexp_sorted, _sort_rows)
-
-_DENSE = ("not ported yet: the dense LM merge (ROADMAP.md queue 1, item 2); "
-          "the port's LM search uses the sort merge")
+                          _end_steps, _hash_extend, _logaddexp, merge_rows)
 
 
 def make_id_tables(codec, tokenizer):
@@ -386,10 +383,11 @@ def make_lm_beam_search(
     next reorder. ``on_select(step, totals, parents, chars)``, if given,
     sees each search step's selection (the frame of the full search, the
     segment of the skip search), ``(G, BM)`` tensors of a group in rank
-    order (for comparing two runs). ``dense_merge`` raises
-    ``NotImplementedError``."""
-    if dense_merge:
-        raise NotImplementedError(_DENSE)
+    order (for comparing two runs). ``dense_merge`` merges a step's rows
+    of equal prefix through an all-pairs equality matrix instead of the
+    sort (the JAX package's opt-in ``HCTR_LM_DENSE_MERGE=1``; the same
+    groups and representatives, its group log-sum-exp max + exp-sum, so
+    low-order bits differ from the sort merge's)."""
     BM, K = beam_size, depth
     M = depth if use_lm_pred else 0     # LM proposals per beam
     C = K + M
@@ -429,6 +427,7 @@ def make_lm_beam_search(
     row_parent = torch.cat([bi, torch.arange(BM, device=dev)])   # (n_rows,)
     row_ids = torch.arange(n_rows, dtype=torch.int32, device=dev)
     full_slots = 1 + torch.arange(C, device=dev).repeat(BM)      # (BM*C,)
+    earlier = row_ids[None, :] < row_ids[:, None]                # j < i
 
     def decode_group(cand_vals, cand_idx, logits, logz, blank_lp, n_above):
         G, T, _ = cand_vals.shape
@@ -612,25 +611,16 @@ def make_lm_beam_search(
                       + peek_scores.view(G, BM, R)[gi, row_parent, slot])
             row_pt = row_lm * lm_panelty + row_len.float() * len_bonus
 
-            # ---- merge: stable sort by (h1, h2, row), segmented logaddexp
-            order = _sort_rows(kh1, kh2)
-            kh1_s, kh2_s = kh1.gather(1, order), kh2.gather(1, order)
-            seg_start = torch.cat(
-                [torch.ones((G, 1), dtype=torch.bool, device=dev),
-                 (kh1_s[:, 1:] != kh1_s[:, :-1])
-                 | (kh2_s[:, 1:] != kh2_s[:, :-1])], 1)
-            pb_m = _segment_logaddexp_sorted(row_pb.gather(1, order),
-                                             seg_start)
-            pnb_m = _segment_logaddexp_sorted(row_pnb.gather(1, order),
-                                              seg_start)
-            total = _logaddexp(pb_m, pnb_m) + row_pt.gather(1, order)
-            total = torch.where(seg_start & ~row_dead.gather(1, order),
-                                total, NEG_INF)
+            # ---- merge: the sort merge (stable sort by (h1, h2, row),
+            # segmented logaddexp) or the dense one (all-pairs equality)
+            pb_m, pnb_m, total, order = merge_rows(
+                kh1, kh2, row_pb, row_pnb, row_pt, row_dead, earlier,
+                dense_merge)
 
             # ---- best BM groups, ordered as lax.top_k (ties: lower index)
             top = torch.sort(total, dim=1, descending=True,
                              stable=True).indices[:, :BM]
-            pick = order.gather(1, top)                  # original row ids
+            pick = top if order is None else order.gather(1, top)
             sel_parent = row_parent[pick]                             # (G,BM)
             sel_ext = row_is_ext.gather(1, pick)
             sel_char = row_char.gather(1, pick)

@@ -9,7 +9,9 @@ engine picks them (its ``serve/engine.py:138-147``):
   * ``greedy``: argmax + CTC collapse on the device (``ops/decode``);
   * ``beam``: a beam search without an LM, the fused log-softmax + top-K
     (kernel K1) feeding the device prefix beam search
-    (``decode/beam_device``);
+    (``decode/beam_device``), with the merge of ``HCTR_DENSE_MERGE``
+    (``dense_merge_default``, read when the route is built, as the JAX
+    engine and driver read it);
   * ``lm``: a beam search scored by a transformer LM (one with
     ``lm_model``), K1 with its blank log-prob and its count of classes above
     ``prune`` and the frame log-partition feeding the LM-fused device search
@@ -25,6 +27,11 @@ engine picks them (its ``serve/engine.py:138-147``):
 An LM that is neither scored nor proposing is ignored. The D2H goes to
 pinned memory behind an event (``to_host``), so that work queued after a
 dispatch does not hold it back.
+
+``dispatch_shards`` decodes a batch's row shards (``-dp``), each shard's
+logits on its own device: the ``lm`` route through ``AdaptiveLMBeam``'s
+shards (built with ``shards=``), the others shard by shard, with each
+shard's host tail on its own thread.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ import torch
 
 from ..ops import topk_logsoftmax as _k1
 from ..ops.decode import greedy_decode_device
-from .beam_device import beam_search_fused
+from ..parallel.mesh import on_shard
+from .beam_device import beam_search_fused, dense_merge_default
 
 
 def to_host(*tensors: torch.Tensor) -> Callable[[], List[np.ndarray]]:
@@ -66,8 +74,10 @@ class DecodeRoute:
     (``decode/adaptive.AdaptiveLMBeam``) where the route has one."""
 
     def __init__(self, name: str, codec, beam_size: int, search_depth: int,
-                 len_bonus: float, prune_lp: float, host=None, lm_beam=None):
+                 len_bonus: float, prune_lp: float, host=None, lm_beam=None,
+                 dense_merge: bool = True):
         self.name = name
+        self.dense_merge = dense_merge
         self.codec = codec
         self.beam_size = beam_size
         self.search_depth = search_depth
@@ -89,8 +99,7 @@ class DecodeRoute:
         ``finalize() -> B texts``."""
         codec = self.codec
         if self.name == "lm":
-            cv, ci, blank_lp, n_above = _k1.topk_logsoftmax(
-                logits, k=self.search_depth, prune=self.prune_lp)
+            cv, ci, blank_lp, n_above = self.lm_inputs(logits)
             logz = torch.logsumexp(logits.float(), dim=-1)
 
             def finalize():
@@ -113,7 +122,7 @@ class DecodeRoute:
             wait = to_host(*beam_search_fused(
                 logits, beam_size=self.beam_size, depth=self.search_depth,
                 unknown_id=codec.unknown_id, blank_id=codec.blank_id,
-                len_bonus=self.len_bonus))
+                len_bonus=self.len_bonus, dense_merge=self.dense_merge))
         else:
             wait = to_host(*greedy_decode_device(
                 logits, unknown_id=codec.unknown_id,
@@ -122,6 +131,47 @@ class DecodeRoute:
         def finalize():
             chars, lengths = wait()
             return codec.compact_to_texts(chars, lengths)
+        return finalize
+
+    def lm_inputs(self, logits: torch.Tensor):
+        """K1 at the route's depth and prune: ``(cand_vals, cand_idx,
+        blank_lp, n_above)``."""
+        return _k1.topk_logsoftmax(logits, k=self.search_depth,
+                                   prune=self.prune_lp)
+
+    def dispatch_shards(self, logits: List[torch.Tensor], pool
+                        ) -> Callable[[], List[str]]:
+        """``dispatch`` of a batch's row shards (``logits[i]`` on shard
+        ``i``'s device), each shard's device work and host tail on
+        ``pool``'s threads; returns ``finalize() -> texts`` in row order."""
+        codec = self.codec
+        n = len(logits)
+
+        def on(i, fn, *args):           # shard i's work, on its thread
+            with on_shard(i, logits[i].device), torch.inference_mode():
+                return fn(*args)
+
+        if self.name != "lm":
+            finals = list(pool.map(on, range(n), [self.dispatch] * n,
+                                   logits))
+
+            def finalize():
+                return [t for texts in pool.map(on, range(n), finals)
+                        for t in texts]
+            return finalize
+
+        def prep(x):
+            cv, ci, blank_lp, n_above = self.lm_inputs(x)
+            return (cv, ci, x, torch.logsumexp(x.float(), dim=-1), blank_lp,
+                    n_above)
+        parts = list(pool.map(on, range(n), [prep] * n, logits))
+
+        def finalize():
+            texts = []
+            for chars, lengths in self.lm_beam.decode_shards(parts):
+                texts += codec.compact_to_texts(chars.cpu().numpy(),
+                                                lengths.cpu().numpy())
+            return texts
         return finalize
 
 
@@ -134,7 +184,8 @@ def build_route(codec, decode_method: str = "greedy-search", lm=None, *,
                 lm_int8: bool = False, lm_group: int = 8, lm_ctx: int = 0,
                 seg_budget: int = 0, run_max: int = 8, ctx_ladder: int = 112,
                 fused_commit: bool = False,
-                device: str | torch.device = "cuda") -> DecodeRoute:
+                device: str | torch.device = "cuda",
+                shards=None) -> DecodeRoute:
     """The route of a configuration, with its decoder built. ``lm`` is a
     ``decode/lm_interface`` backend or None; a transformer LM's proposals
     run on ``device``. ``prune`` is the skip search's ambiguity threshold, a
@@ -142,13 +193,16 @@ def build_route(codec, decode_method: str = "greedy-search", lm=None, *,
     ``decode/adaptive.AdaptiveLMBeam``'s, the LM in bf16 unless ``lm_f32``,
     its step's FF and logits products in int8 with ``lm_int8`` (the device
     search's LM only; other routes ignore it, as in the JAX engine).
-    A native library that does not build raises."""
+    ``shards``: the devices of ``-dp``'s row shards, for the ``lm`` route's
+    search (one LM replica each). A native library that does not build
+    raises."""
     if decode_method not in ("greedy-search", "beam-search"):
         raise ValueError(f"unknown decode method {decode_method!r}")
     is_tfm = lm is not None and hasattr(lm, "lm_model")
     prune_lp = math.log(prune)
     kw = dict(codec=codec, beam_size=beam_size, search_depth=search_depth,
-              len_bonus=len_bonus, prune_lp=prune_lp)
+              len_bonus=len_bonus, prune_lp=prune_lp,
+              dense_merge=dense_merge_default())
     if decode_method == "greedy-search":
         return DecodeRoute("greedy", **kw)
     if use_lm_score and is_tfm and not host_beam:
@@ -165,7 +219,7 @@ def build_route(codec, decode_method: str = "greedy-search", lm=None, *,
             len_bonus=len_bonus, use_lm_pred=use_lm_pred,
             skip_search=skip_search, group_size=lm_group, lm_ctx=lm_ctx,
             seg_budget=seg_budget, run_max=run_max, ctx_ladder=ctx_ladder,
-            fused_commit=fused_commit, prune=prune_lp))
+            fused_commit=fused_commit, prune=prune_lp, shards=shards))
     if not (host_beam or skip_search or use_lm_score
             or (use_lm_pred and lm is not None)):
         return DecodeRoute("beam", **kw)

@@ -24,21 +24,32 @@ serving engine shares), as the JAX driver routes them:
 
 One batch is in flight: the next batch is dispatched before the last one's
 host tail (D2H, host search, strings, CER) runs.
+
+``-dp N`` (``args.data_parallel``): one process, N row shards of every
+batch on ``parallel/mesh.data_devices(N)`` (or the ``devices`` given).
+Each shard device holds one weight replica, copied once; each shard's
+forward and decode run on its device from its own host thread, so that
+host-bound searches overlap, and the texts come back in row order. As in
+the JAX driver, N above the visible cards raises, and so does an N that
+does not divide ``-b``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from ..serve import quant
 
 
-def build_beam_decoder(codec, args, device="cuda"):
+def build_beam_decoder(codec, args, device="cuda", shards=None):
     """The decoder of CLI flags: a ``decode/routes.DecodeRoute`` (the
     greedy route under ``-dm greedy-search``), with the LM of ``-tp``/``-kp``
     (``build_lm_backend``, `ctc_codec.py:101-122`). The flags map onto the
@@ -46,7 +57,7 @@ def build_beam_decoder(codec, args, device="cuda"):
     transformer, so a transformer without ``-uts`` takes the host beam
     (scored when ``-kp`` is given, as the JAX driver scores it); without
     an LM, ``-utp``/``-uts`` change nothing; ``--host-beam`` forces the
-    host beam."""
+    host beam. ``shards``: the devices of ``-dp``'s row shards."""
     from ..decode.lm_interface import build_lm_backend
     from ..decode.routes import build_route
 
@@ -68,20 +79,21 @@ def build_beam_decoder(codec, args, device="cuda"):
         lm_group=args.lm_group,
         lm_ctx=args.lm_ctx, seg_budget=args.seg_budget,
         run_max=args.run_max, ctx_ladder=args.ctx_ladder,
-        fused_commit=args.fused_commit, device=device)
+        fused_commit=args.fused_commit, device=device, shards=shards)
 
 
 class EvalSession:
     """The loaded model and decode route shared by single and benchmark
     modes."""
 
-    def __init__(self, args):
+    def __init__(self, args, devices=None):
         from ..cli.deploy import load_weights
         from ..core.codec import CTCCodec
         from ..models.registry import get_model_info
 
         self.args = args
         self.device = torch.device(args.device)
+        self.shards = self._shard_devices(args, devices)
         input_path = args.input if os.path.isdir(args.input) else None
         model, characters = get_model_info(
             args.model_type, data_dir=input_path,
@@ -95,7 +107,18 @@ class EvalSession:
         model.load_state_dict(load_weights(args.model_file, model))
         self.model = model.to(self.device).eval()
         self.codec = CTCCodec(characters)
-        self.route = build_beam_decoder(self.codec, args, self.device)
+        if self.shards is not None:
+            # one replica a shard device, copied once
+            self._replicas = {}
+            for d in self.shards:
+                if d not in self._replicas:
+                    self._replicas[d] = (
+                        self.model if d == mesh.canonical(self.device)
+                        else copy.deepcopy(self.model).to(d))
+            self._pool = ThreadPoolExecutor(len(self.shards),
+                                            thread_name_prefix="dp-shard")
+        self.route = build_beam_decoder(self.codec, args, self.device,
+                                        shards=self.shards)
         # int8 conv scales (``serve/quant``), calibrated on the first batch
         self.int8 = bool(args.int8)
         self._quant = None
@@ -108,6 +131,29 @@ class EvalSession:
                   "(skip-search, the reference's fast path) at equal "
                   "accuracy on peaky posteriors — consider adding -ss")
 
+    @staticmethod
+    def _shard_devices(args, devices):
+        """``-dp``'s shard devices (None for one device), with the JAX
+        driver's checks."""
+        ndp = len(devices) if devices is not None else int(
+            args.data_parallel or 0)
+        if ndp <= 1:
+            return None
+        if devices is None:
+            devices = mesh.data_devices(ndp, args.device)
+        if args.batch_size % ndp != 0:
+            raise ValueError(f"--data-parallel {ndp} must divide the batch "
+                             f"size {args.batch_size}")
+        return [mesh.canonical(d) for d in devices]
+
+    def _shard_logits(self, i: int, rows: np.ndarray) -> torch.Tensor:
+        """Shard ``i``'s forward on its device (run on its thread)."""
+        d = self.shards[i]
+        with mesh.on_shard(i, d), torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(rows)).to(
+                d, non_blocking=True)
+            return self._replicas[d](x)
+
     @torch.inference_mode()
     def decode_batch_async(self, images_nhwc: np.ndarray):
         """Dispatch a ``(B, H, W, 1)`` normalised f32 batch; returns
@@ -116,11 +162,33 @@ class EvalSession:
         ``finalize``, so a caller that dispatches the next batch first
         overlaps the two."""
         t0 = time.time()
+        if self.shards is not None:
+            return self._decode_shards_async(images_nhwc, t0)
         x = torch.from_numpy(np.ascontiguousarray(images_nhwc)).to(
             self.device, non_blocking=True)
         if self.int8 and self._quant is None:
             self._quant = quant.calibrate_for_model(self.model, [x])
         texts = self.route.dispatch(self.model(x))
+
+        def finalize():
+            return texts(), time.time() - t0
+        return finalize
+
+    def _decode_shards_async(self, images_nhwc: np.ndarray, t0: float):
+        n = len(self.shards)
+        if self.int8 and self._quant is None:
+            # calibrated on the whole first batch, as without shards
+            first = self._replicas[self.shards[0]]
+            x = torch.from_numpy(np.ascontiguousarray(images_nhwc)).to(
+                self.shards[0])
+            self._quant = quant.calibrate_for_model(first, [x])
+            for m in self._replicas.values():
+                if m is not first:
+                    quant.set_conv_amax(m, self._quant)
+        logits = list(self._pool.map(
+            self._shard_logits, range(n),
+            [mesh.shard_rows(images_nhwc, n, i) for i in range(n)]))
+        texts = self.route.dispatch_shards(logits, self._pool)
 
         def finalize():
             return texts(), time.time() - t0
@@ -163,9 +231,10 @@ def run_single(args) -> None:
             print(f"file:\t{f}\npred:\t{t}")
 
 
-def run_benchmark(args) -> float:
+def run_benchmark(args, devices=None) -> float:
     """Test-set CER (`test.py:230-306`): prints ``Total Test CER: <cer>``
-    and returns the CER."""
+    and returns the CER. ``devices``: ``-dp``'s shard devices, given
+    explicitly (e.g. two shards on one card)."""
     from ..data.bucketing import AlignCollate, BucketSpec
     from ..data.dataset import ImageDataset
     from ..data.loader import DataLoader
@@ -173,7 +242,7 @@ def run_benchmark(args) -> float:
 
     if not os.path.isdir(args.input):
         raise AssertionError("Input should be a folder under benchmark mode.")
-    session = EvalSession(args)
+    session = EvalSession(args, devices)
     model = session.model
     dataset = ImageDataset(args.input, (1, model.img_height), "test",
                            batch_size=args.batch_size)

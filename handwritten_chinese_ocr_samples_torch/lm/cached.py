@@ -16,12 +16,14 @@ scores and their softmax, the final logits) run in f32.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops import cache_gather, int8_conv
+from ..parallel import mesh
 from .model import layer_norm
 
 NEG = -1e30
@@ -102,6 +104,27 @@ class CachedLM:
             quant("logits", self.emb)
 
     # ------------------------------------------------------------ plumbing
+    def replica(self, device) -> "CachedLM":
+        """This LM with its weights copied to ``device`` once (itself where
+        they already are): one replica a data shard."""
+        device = mesh.canonical(device)
+        if device == self.device:
+            return self
+
+        def to(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device)
+            if isinstance(x, (tuple, list)):
+                return type(x)(to(v) for v in x)
+            if isinstance(x, dict):
+                return {k: to(v) for k, v in x.items()}
+            return x
+        new = copy.copy(self)
+        for name in ("emb", "emb32", "pos", "ln_f", "layers", "_wq"):
+            setattr(new, name, to(getattr(self, name)))
+        new.device = device
+        return new
+
     def init_cache(self, B: int, max_len: int) -> LMCache:
         shape = (self.n_layers, B, max_len, self.n_heads, self.d_head)
         return LMCache(

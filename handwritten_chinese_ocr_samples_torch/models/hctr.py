@@ -17,10 +17,11 @@ maps one onto the other by path.
     f32 statistics and flax's biased variance ``E[x^2] - E[x]^2``, and
     keeps them (``batch_stats``) for the train step, which moves the
     running statistics to ``0.9 * running + 0.1 * batch`` (flax's momentum
-    0.9) unless the step is skipped. Dropout (``ops/dropout.py``) runs after
-    each block (``block_drop``, 0.1) and after each stage (``stage_drop``,
-    0.3/0.3/0.3/0.9), seeded by the ``dropout_seed`` of ``forward`` folded
-    with the site's number. ``remat`` recomputes each block in the backward
+    0.9) unless the step is skipped; under a process group of several
+    ranks (``parallel/mesh.py``) the batch is the global one. Dropout
+    (``ops/dropout.py``) runs after each block (``block_drop``, 0.1) and
+    after each stage (``stage_drop``, 0.3/0.3/0.3/0.9), seeded by the
+    ``dropout_seed`` of ``forward`` folded with the site's number. ``remat`` recomputes each block in the backward
     pass (``torch.utils.checkpoint``); its dropout masks come from the same
     seeds, and its BatchNorm statistics are the same values again.
   * The head flattens ``(H, C)`` as ``h * C + c``, the flax order, not
@@ -38,6 +39,7 @@ from torch import nn
 
 from ..ops.dropout import dropout_recompute, fold_in
 from ..ops.int8_conv import QuantConv
+from ..parallel import mesh
 
 
 class Conv(nn.Conv2d):
@@ -86,13 +88,31 @@ class _BatchNormTrain(torch.autograd.Function):
     mean and biased variance ``max(E[x^2] - E[x]^2, 0)``, then
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, cast to ``x``'s
     dtype. Saves ``x`` in its own dtype and the per-channel statistics;
-    the backward is the closed form of the same function."""
+    the backward is the closed form of the same function.
+
+    Under a process group of more than one rank the statistics are the
+    global batch's, as the JAX step's are over its sharded batch: the
+    forward sums ``x``, ``x^2`` and the count over the group, and the
+    backward sums ``dy`` and ``dy * xhat`` for ``dx`` (the parameter
+    gradients stay local: the train step averages every gradient)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float):
         x32 = x.to(_stats_dtype(x))
-        mean = x32.mean(dim=(0, 2, 3))
-        var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0)
+        ctx.sync = mesh.world_size() > 1
+        if ctx.sync:
+            n = x.numel() // x.shape[1]
+            sums = torch.cat([x32.sum(dim=(0, 2, 3)),
+                              x32.square().sum(dim=(0, 2, 3)),
+                              x32.new_full((1,), n)])
+            mesh.all_reduce_sum_(sums)       # no host sync: n stays a tensor
+            ctx.n = sums[-1]
+            mean, sq = sums[:-1].view(2, -1) / ctx.n
+        else:
+            ctx.n = x.numel() // x.shape[1]
+            mean = x32.mean(dim=(0, 2, 3))
+            sq = x32.square().mean(dim=(0, 2, 3))
+        var = (sq - mean.square()).clamp_min(0)
         invstd = torch.rsqrt(var + eps)
         y = ((x32 - mean[:, None, None]) * (invstd * weight)[:, None, None]
              + bias[:, None, None])
@@ -103,13 +123,17 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, invstd = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         xhat = (x.to(mean.dtype) - mean[:, None, None]) * invstd[:, None, None]
         dy32 = dy.to(mean.dtype)
         dbias = dy32.sum(dim=(0, 2, 3))
         dweight = (dy32 * xhat).sum(dim=(0, 2, 3))
+        sum_dy, sum_dyx = dbias, dweight
+        if ctx.sync:
+            sum_dy, sum_dyx = mesh.all_reduce_sum_(
+                torch.stack([dbias, dweight]))
         dx = (weight * invstd / n)[:, None, None] * (
-            n * dy32 - dbias[:, None, None] - xhat * dweight[:, None, None])
+            n * dy32 - sum_dy[:, None, None] - xhat * sum_dyx[:, None, None])
         return (dx.to(x.dtype), dweight.to(weight.dtype),
                 dbias.to(weight.dtype), None)
 

@@ -13,7 +13,9 @@ themselves differ from JAX's (no torch generator reproduces
 ``jax.random.bits``).
 
 ``fold_in`` derives the seed of a step and site from the run's seed, as
-``jax.random.fold_in`` derives keys.
+``jax.random.fold_in`` derives keys. Under a process group of several ranks
+the rank is folded into each site's seed too, so that the ranks' rows draw
+independent masks.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..parallel import mesh
 
 _MASK64 = (1 << 64) - 1
 
@@ -76,4 +80,6 @@ def dropout_recompute(x: torch.Tensor, seed: int,
     the backward pass. ``rate`` must be in ``[0, 1)``."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} is outside [0, 1)")
+    if mesh.world_size() > 1:
+        seed = fold_in(seed, mesh.rank())
     return _DropoutRecompute.apply(x, seed, rate)

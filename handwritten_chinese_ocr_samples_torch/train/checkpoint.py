@@ -9,6 +9,8 @@
     it is copied to ``[val_]<model>_{epoch}ep_{acc:.4f}acc_checkpoint``
     (`main.py:349-356,540-558`).
   * The save is synchronous and atomic (written beside, then renamed).
+  * Under a process group only rank 0 writes (the JAX package's
+    ``checkpoint.py:79``); every rank holds the same state.
   * Resume restores the epoch, best_acc, optimizer state and step
     (`main.py:251-269`). A file with a bare state dict (``hctr_tiny.pt``),
     or with params and statistics but another optimizer's state, is a warm
@@ -23,6 +25,7 @@ from typing import Any, Tuple
 
 import torch
 
+from ..parallel import mesh
 from .step import TrainState
 
 
@@ -38,7 +41,9 @@ def save_checkpoint(state: TrainState, epoch: int, best_acc: float,
                     is_best: bool = False, acc: float = 0.0,
                     is_val: bool = False) -> str:
     """Write the latest checkpoint; copy it to a best-tagged name when
-    ``is_best``. Returns its path."""
+    ``is_best``. Returns its path ("" on a rank other than 0)."""
+    if not mesh.is_main():
+        return ""
     os.makedirs(out_dir, exist_ok=True)
     module = state.module
     payload = {

@@ -17,7 +17,13 @@ package has them:
     over every tensor, so a step has no device-to-host copy; the step counter
     moves on either way, as in JAX;
   * dropout masks are seeded by ``fold_in(dropout_seed, step)``, the
-    counterpart of ``jax.random.fold_in(dropout_rng, state.step)``.
+    counterpart of ``jax.random.fold_in(dropout_rng, state.step)``;
+  * under a process group (``parallel/mesh.py``, ``cli/train.py
+    --distributed``) each rank steps on its rows of the global batch; the
+    loss and the flat gradient list are averaged over the ranks before the
+    update (no ``DistributedDataParallel``: its hooks do not fire on
+    ``torch.autograd.grad``) and BatchNorm's statistics are the global
+    batch's, so the step is the one-process step on the whole batch.
 
 The classification steps (``pred == "Classification"``, the
 ``innovation`` classifier) share all of this: the loss is the mean softmax
@@ -37,6 +43,7 @@ import torch.nn.functional as F
 from ..ops.ctc import ctc_loss_mean, widths_to_paddings
 from ..ops.decode import greedy_decode_device
 from ..ops.dropout import fold_in
+from ..parallel import mesh
 
 # optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -143,8 +150,12 @@ def _keep_if_finite(old: List[torch.Tensor], new: List[torch.Tensor],
 def _update(state: TrainState, names, params, loss: torch.Tensor,
             grads) -> tuple:
     """Clip, optimizer, and the non-finite skip of one step, on the
-    device; moves the step counter. Returns ``(grad_norm, finite)``."""
+    device; moves the step counter. Under a process group the loss and the
+    gradients are first averaged over the ranks, so that the clip, the
+    skip and the update see the global batch's and every rank takes the
+    same step. Returns ``(loss, grad_norm, finite)``."""
     with torch.no_grad():
+        loss, grads = mesh.all_reduce_mean(loss.detach(), grads)
         grad_norm = global_norm(list(grads))
         finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
         new_params, new_opt = state.tx.update(
@@ -161,7 +172,7 @@ def _update(state: TrainState, names, params, loss: torch.Tensor,
             _keep_if_finite([bn.running_mean, bn.running_var],
                             list(bn.new_running_stats()), finite)
     state.step += 1
-    return grad_norm, finite
+    return loss, grad_norm, finite
 
 
 def make_train_step(use_width_mask: bool = False):
@@ -188,8 +199,9 @@ def make_train_step(use_width_mask: bool = False):
         loss = ctc_loss_mean(logits, batch["labels"],
                              batch["label_paddings"], logit_paddings)
         grads = torch.autograd.grad(loss, params)
-        grad_norm, finite = _update(state, names, params, loss, grads)
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+        loss, grad_norm, finite = _update(state, names, params, loss,
+                                          grads)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "skipped": (~finite).float()}
         return state, metrics
 
@@ -212,8 +224,9 @@ def make_classify_train_step():
         loss = F.cross_entropy(logits.float(), labels)
         acc = (logits.argmax(dim=-1) == labels).float().mean()
         grads = torch.autograd.grad(loss, params)
-        grad_norm, finite = _update(state, names, params, loss, grads)
-        metrics = {"loss": loss.detach(), "grad_norm": grad_norm,
+        loss, grad_norm, finite = _update(state, names, params, loss,
+                                          grads)
+        metrics = {"loss": loss, "grad_norm": grad_norm,
                    "acc": acc, "skipped": (~finite).float()}
         return state, metrics
 

@@ -24,6 +24,15 @@ accuracy as the test accuracy.
 ``profile_dir`` traces steps [10, 30) of the first trained epoch with
 ``utils/profiling.profile_trace`` (past cuDNN's autotune and the loader's
 warm-up; bounded so that the trace stays viewable).
+
+Under a process group of ``W`` ranks (``parallel/mesh.py``, ``cli/train.py
+--distributed``) the step is the one-process step on the whole batch (see
+``train/step.py``): every rank plans the same seeded batches and decodes
+only its ``B / W`` rows of each (``DataLoader(rows=...)``), padded to the
+whole batch's width; a ``W`` that does not divide the batch size raises.
+Evaluation sums its counts over the ranks. Only rank 0 prints, writes
+checkpoints and writes the profiler trace, as only the JAX package's
+process 0 writes (its ``train/checkpoint.py:79``).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from ..data.dataset import ImageDataset
 from ..data.loader import DataLoader
 from ..eval.metrics import AverageMeter, cer_counts
 from ..ops.dropout import fold_in
+from ..parallel import mesh
 from ..utils.profiling import profile_trace
 from ..utils.weights import init_state_dict
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -88,6 +98,11 @@ class Trainer:
         self.pred_mode = getattr(model, "pred", "CTC")
         if self.pred_mode not in ("CTC", "Classification"):
             raise ValueError(f"not expected pred mode: {self.pred_mode}")
+        self.world = mesh.world_size()
+        if cfg.batch_size % self.world:
+            raise ValueError(
+                f"batch size {cfg.batch_size} is not divisible by the "
+                f"{self.world} ranks of the process group")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.codec = CTCCodec(characters)
@@ -118,7 +133,7 @@ class Trainer:
             self.state, epoch, self.best_acc = load_checkpoint(
                 cfg.resume, self.state)
             self.start_epoch = epoch
-            print(f"=> loaded checkpoint: {cfg.resume} (epoch {epoch})")
+            _log(f"=> loaded checkpoint: {cfg.resume} (epoch {epoch})")
 
     # ------------------------------------------------------------- loaders
     def _loader(self, phase: str, shuffle: bool) -> DataLoader:
@@ -137,7 +152,8 @@ class Trainer:
                     cfg.bucket_step, cfg.max_width + 1, cfg.bucket_step))))
         return DataLoader(dataset, cfg.batch_size, collate, shuffle=shuffle,
                           seed=cfg.seed or 0, group_by_width=shuffle,
-                          num_workers=cfg.workers)
+                          num_workers=cfg.workers,
+                          rows=(mesh.rank(), mesh.world_size()))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -190,7 +206,7 @@ class Trainer:
         cfg = self.cfg
         if cfg.test_only:
             acc = self.evaluate("test")
-            print(f"Test acc: {acc:.4f}")
+            _log(f"Test acc: {acc:.4f}")
             return
 
         train_loader = self._loader("train", shuffle=True)
@@ -205,8 +221,8 @@ class Trainer:
             save_checkpoint(self.state, epoch + 1, self.best_acc,
                             out_dir=cfg.out_dir, model_type=cfg.model_type,
                             is_best=is_best, acc=acc)
-            print(f"epoch {epoch}: test acc {acc:.4f} "
-                  f"(best {self.best_acc:.4f})")
+            _log(f"epoch {epoch}: test acc {acc:.4f} "
+                 f"(best {self.best_acc:.4f})")
 
     def _train_epoch(self, loader: DataLoader, epoch: int):
         cfg = self.cfg
@@ -215,7 +231,8 @@ class Trainer:
         losses = AverageMeter("loss", ":.4f")
         dropout_seed = fold_in(self.dropout_seed, epoch)
         trace = contextlib.ExitStack()
-        profile = bool(cfg.profile_dir) and epoch == self.start_epoch
+        profile = (bool(cfg.profile_dir) and epoch == self.start_epoch
+                   and mesh.is_main())
         tracing = False
         end = time.time()
         for i, batch in enumerate(self._device_iter(loader)):
@@ -233,11 +250,11 @@ class Trainer:
                                                   dropout_seed)
             if (i + 1) % cfg.print_freq == 0:
                 loss = float(metrics["loss"])  # the host waits here
-                losses.update(loss, n_items)
-                print(f"Epoch [{epoch}][{i + 1}/{len(loader)}] "
-                      f"{batch_time} {data_time} {losses} "
-                      f"grad_norm {float(metrics['grad_norm']):.2f} "
-                      f"skipped {float(metrics['skipped']):.0f}")
+                losses.update(loss, n_items * self.world)
+                _log(f"Epoch [{epoch}][{i + 1}/{len(loader)}] "
+                     f"{batch_time} {data_time} {losses} "
+                     f"grad_norm {float(metrics['grad_norm']):.2f} "
+                     f"skipped {float(metrics['skipped']):.0f}")
             if cfg.val_freq and (i + 1) % cfg.val_freq == 0:
                 acc = self.evaluate("val")
                 is_best = acc > self.best_acc
@@ -255,7 +272,9 @@ class Trainer:
     # ---------------------------------------------------------------- eval
     def evaluate(self, phase: str = "test") -> float:
         """CTC: greedy decode of a split, accuracy = 1 - CER
-        (`main.py:516-537`). Classification: top-1 accuracy."""
+        (`main.py:516-537`). Classification: top-1 accuracy. Under a
+        process group each rank decodes its rows and the counts are summed
+        over the ranks."""
         if self.pred_mode == "Classification":
             return self._evaluate_top1(phase)
         dist_sum, len_sum = 0, 0
@@ -269,8 +288,9 @@ class Trainer:
             dist_sum += d
             len_sum += t
             if self.cfg.test_verbose:
-                for p, g in zip(preds, batch["labels"]):
+                for p, g in self._gathered(zip(preds, batch["labels"])):
                     print(f"PRE: {p}\nTRU: {g}")
+        dist_sum, len_sum = self._summed(dist_sum, len_sum)
         return 1.0 - dist_sum / max(len_sum, 1)
 
     def _evaluate_top1(self, phase: str) -> float:
@@ -282,6 +302,31 @@ class Trainer:
             correct += int((truth == pred).sum())
             total += len(truth)
             if self.cfg.test_verbose:
-                for p, g in zip(pred, batch["labels"]):
+                for p, g in self._gathered(zip(pred, batch["labels"])):
                     print(f"PRE: {self.codec.characters[int(p)]}\nTRU: {g}")
+        correct, total = self._summed(correct, total)
         return correct / max(total, 1)
+
+    def _summed(self, *counts: int) -> tuple:
+        """Integer counts summed over the ranks (as they are without a
+        group)."""
+        if self.world == 1:
+            return counts
+        t = torch.tensor(counts, dtype=torch.float64, device=self.device)
+        return tuple(int(c) for c in mesh.all_reduce_sum_(t).tolist())
+
+    def _gathered(self, pairs) -> list:
+        """A batch's ``(prediction, truth)`` pairs of every rank in row
+        order, on rank 0 (nothing elsewhere)."""
+        pairs = list(pairs)
+        if self.world == 1:
+            return pairs
+        every = [None] * self.world
+        torch.distributed.all_gather_object(every, pairs)
+        return [p for part in every for p in part] if mesh.is_main() else []
+
+
+def _log(msg: str) -> None:
+    """Print on rank 0 only (every process without a group)."""
+    if mesh.is_main():
+        print(msg)

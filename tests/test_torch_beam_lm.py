@@ -155,20 +155,22 @@ def test_selection_hook(setup):
 
 
 def test_unported_knobs_raise(setup):
-    """The dense LM merge (opt-in in the JAX package) is not ported: the
-    search and its driver refuse it. The int8 LM, refused until int8 was
-    ported, now builds and its step gives the JAX int8 LM's next token."""
+    """Nothing is refused any more. The dense LM merge (opt-in in the JAX
+    package), refused until it was ported, now builds in the search and its
+    driver, and its full search gives the JAX dense merge's texts
+    (``tests/test_torch_merges.py`` holds both searches to JAX's). The int8
+    LM, refused until int8 was ported, now builds and its step gives the
+    JAX int8 LM's next token."""
     codec, jclm, clm, (c2l, l2c) = setup
-    kw = dict(KW, unknown_id=codec.unknown_id)
-    for extra in (dict(dense_merge=True),
-                  dict(dense_merge=True, skip_search=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            bl.make_lm_beam_search(clm, c2l, l2c, **kw, **extra)
+    kw = dict(KW, unknown_id=codec.unknown_id, lm_ctx=64, dense_merge=True)
+    jargs, targs = _inputs(_preds(12, 2, 4), KW["depth"])
+    _equal(jbl.make_lm_beam_search(jclm, c2l, l2c, **kw)(*jargs),
+           bl.make_lm_beam_search(clm, c2l, l2c, **kw)(*targs))
     for extra in (dict(dense_merge=True),
                   dict(dense_merge=True, skip_search=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ad.AdaptiveLMBeam(clm, c2l, l2c, unknown_id=codec.unknown_id,
-                              lm_panelty=1.0, len_bonus=1.0, **extra)
+        assert ad.AdaptiveLMBeam(clm, c2l, l2c, unknown_id=codec.unknown_id,
+                                 lm_panelty=1.0, len_bonus=1.0,
+                                 **extra)._dense
     q8 = CachedLM(clm.model, lm_flax_to_torch(jax.tree.map(np.asarray,
                                                           jclm.p)),
                   quant_int8=True)

@@ -311,14 +311,26 @@ def test_single_mode_prints_jax_texts(split16, f32_recognizers, capsys):
     ["-b", "8", *conv.INT8_EVAL_COMMANDS["lm_ss"]]])
 def test_unported_flags_error(split16, committed, flags, capsys):
     """The surfaces not ported stop with an error that names their ROADMAP
-    item. ``--int8`` and ``--lm-int8``, refused until int8 was ported, now
-    run (on RESULTS.md's greedy and LM ``-ss`` commands): the 17-site
-    one-liner, and a CER within 0.02 of the float command's (the JAX
-    eval's texts on the same lines). ``--profile`` and reference
-    ``.pth``/``.pth.tar`` files, refused until they were ported, are
-    ``test_profile_and_reference_checkpoints``'s."""
+    item; none is left. ``--int8`` and ``--lm-int8``, refused until int8
+    was ported, now run (on RESULTS.md's greedy and LM ``-ss`` commands):
+    the 17-site one-liner, and a CER within 0.02 of the float command's
+    (the JAX eval's texts on the same lines). ``-dp``, refused until
+    multi-device eval was ported, now runs: at ``-b 1`` it stops with the
+    JAX driver's message, at ``-b 8`` it gives the unsharded CER
+    (``tests/test_torch_dp_eval.py`` holds it to JAX's ``-dp``).
+    ``--profile`` and reference ``.pth``/``.pth.tar`` files, refused until
+    they were ported, are ``test_profile_and_reference_checkpoints``'s."""
     argv = ["-m", "hctr-tiny", "-f", WEIGHTS, "-i", split16, "-bm", "-d",
             "cpu", *[LM if f == "LM" else f for f in flags]]
+    if "-dp" in flags:
+        with pytest.raises(ValueError, match="--data-parallel 2 must "
+                                             "divide the batch size 1"):
+            port_cli.main(argv)
+        greedy = argv + ["-b", "8", "-dm", "greedy-search"]
+        want, _ = _port_eval([a for a in greedy if a not in ("-dp", "2")])
+        cer, _ = _port_eval(greedy)
+        assert cer == want
+        return
     if "--int8" in flags:
         cer, out = _port_eval(argv)
         assert ("[int8] calibrated 17 conv sites; serving s8xs8->s32 convs"

@@ -61,14 +61,17 @@ def test_port_imports_without_jax_cv2_pil():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("imported")[-1])
     # lm/*, ops/* (ctc, dropout and int8_conv too), decode/*, data/*
-    # (prep too), eval/*, cli/* (train too), serve/* (quant too), train/*,
-    # compat/*, models/innovation and utils/profiling
-    assert n >= 60
+    # (prep too: gnt, flow, dgrl, dgr), eval/*, cli/* (train too), serve/*
+    # (quant too), train/*, compat/*, models/innovation, utils/profiling
+    # and parallel/*
+    assert n >= 64
     names = proc.stdout.split("modules", 1)[1].split("imported")[0].split()
     assert {f"{PORT}.ops.int8_conv", f"{PORT}.serve.quant",
             f"{PORT}.models.innovation", f"{PORT}.compat.torch_convert",
             f"{PORT}.utils.profiling", f"{PORT}.data.prep.gnt",
-            f"{PORT}.data.prep.flow"} <= set(names)
+            f"{PORT}.data.prep.flow", f"{PORT}.data.prep.dgrl",
+            f"{PORT}.data.prep.dgr", f"{PORT}.parallel",
+            f"{PORT}.parallel.mesh"} <= set(names)
 
 
 def test_chip_smoke_fails_without_a_card():

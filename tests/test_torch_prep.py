@@ -131,6 +131,12 @@ def test_flow_matches_jax(tmp_path):
 
 
 def test_prep_exports_gnt_and_flow_only():
+    """The package exports the JAX package's tools: GNT and the flow, and
+    since the DGRL and DGR tools were ported (``test_torch_prep_dgr.py``)
+    those too, where the DGRL tool was absent before."""
+    from handwritten_chinese_ocr_samples_torch.data.prep import dgr, dgrl
     assert prep.gnt2png is gnt.gnt2png
     assert prep.generate_char_img_gt is flow.generate_char_img_gt
-    assert not hasattr(prep, "dgrl2png")
+    assert prep.dgrl2png is dgrl.dgrl2png
+    assert prep.iter_dgrl_lines is dgrl.iter_dgrl_lines
+    assert prep.dgr2png is dgr.dgr2png

@@ -293,9 +293,23 @@ def test_cli_train_writes_the_jax_names(hard16, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["-m", "hctr-tiny", "--distributed"], "item 8"),
 ])
-def test_cli_train_unported_flags_stop(flags, item, tmp_path):
-    with pytest.raises(SystemExit, match=item):
-        train_cli.main([*flags, "-d", str(tmp_path), "--device", "cpu"])
+def test_cli_train_unported_flags_stop(flags, item, synth, tmp_path,
+                                       monkeypatch):
+    """No flag stops the CLI any more. ``--distributed`` (ROADMAP.md queue
+    1, ``item``), refused until multi-device training was ported, runs:
+    without a launcher's environment it trains in this one process and
+    starts no process group (``tests/test_torch_dist.py`` runs it under
+    ``torch.distributed.run``)."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    root, _ = synth
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        train_cli.main([*flags, "-d", root, "--device", "cpu", "-b", "4",
+                        "-ep", "1", "--max-width", "256", "--bucket-step",
+                        "64", "-j", "1", "--out-dir", str(tmp_path)])
+    assert "epoch 0: test acc" in buf.getvalue()
+    assert not torch.distributed.is_initialized()
+    assert "hctr-tiny_checkpoint" in os.listdir(tmp_path)
 
 
 @pytest.fixture(scope="module")
