@@ -8,22 +8,36 @@
     python3 chip_smoke.py --lm
     python3 chip_smoke.py --classify
     python3 chip_smoke.py --dist
+    python3 chip_smoke.py --demo-full
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
 card, then serves seeded text-line images through ``ServingDaemon`` at the
 full ``hctr`` width on the greedy and the beam route, and on the LM-fused
 beam route with the full-width char LM (full search, then the skip search,
-``-ss``), runs the skip search at the JAX bench's config #5 (B 32, T 1200
-peaky posteriors), serves the 150 test lines of ``demo/hard`` with the
-trained weights converted into ``handwritten_chinese_ocr_samples_torch/
-assets/demo_hard`` against the JAX package's committed texts, on the device
+``-ss``), runs the skip search at the JAX bench's config #5 (T 1200 peaky
+posteriors, one group of 8 lines), serves the 150 test lines of
+``demo/hard`` with the trained weights converted into
+``handwritten_chinese_ocr_samples_torch/assets/demo_hard`` against the JAX package's committed texts, on the device
 routes and on the host beam's (the n-gram skip search, the skip search
 without an LM, and LM proposals alone, with the native decoder built from
 the port's C++ source), runs the port's eval CLI (``cli/test.py -bm``) on
-demo/hard's three commands of ``demo/hard/RESULTS.md``, then trains
+demo/hard's three commands of ``demo/hard/RESULTS.md``, then the trained
+full-size ``demo/full`` artifact (``demo_full``, below), then trains
 (``train_parity``, ``train_full``, ``train_cli``), and checks what comes
 out.
+
+``demo_full``: the 38M ``hctr`` and the 512d/6L char LM trained for
+``demo/full/RESULTS.md``, packed in ``handwritten_chinese_ocr_samples_torch/
+assets/demo_full`` (bf16, ``utils.weights.load_packed``), on its 150 test
+lines of 960-1200 px: RESULTS.md's greedy and ``-ss`` commands through
+``cli/test.py -bm -b 25`` (CER gates, texts against the JAX eval's in
+``texts.json`` but for bf16 near-ties, K1-K4 launched), the greedy command
+with ``--int8`` (within ``INT8_EVAL_CER_TOL`` of bf16), and
+``ServingEngine`` at b8 on its width buckets: greedy, ``-ss`` (segments,
+budget, ms a segment step, idle share, memory) and the full search on the
+8 widest lines against the plain versions' decode (ms a frame, the deepest
+LM context). ``--demo-full`` runs only the build and this phase.
 
 int8 serving (kernel I1, ``csrc/int8_conv.cu``: the quantize and the s8 x s8
 -> s32 implicit-GEMM conv entry points; the conv on a TMA-fed ``wgmma``
@@ -211,7 +225,8 @@ from handwritten_chinese_ocr_samples_torch.serve.engine import ServingEngine
 from handwritten_chinese_ocr_samples_torch.utils.posteriors import (
     synth_peaky_logits)
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
-    quant_flax_to_torch, seeded_lm_state_dict, seeded_state_dict)
+    load_packed, normalize_serving_dtype, quant_flax_to_torch,
+    seeded_lm_state_dict, seeded_state_dict)
 
 CHARS_LIST = "demo/full/data/chars_list.txt"
 WIDTHS = (512, 1024, 1600)
@@ -256,8 +271,10 @@ LM_ROWS = 21                   # 1 stay row + K = 10 visual + M = 10 LM rows
 LM_SC = 4                      # peek positions run per row (S1 - 1)
 # The skip search at the JAX bench's config #5 (bench.py:174-240): peaky
 # posteriors of a trained recognizer's statistics (utils/posteriors.py),
-# the seeded char-512x6 LM, lm_panelty 0.8, len_bonus 4.8, group 8
-PEAKY_B, PEAKY_T, PEAKY_SEED = 32, 1200, 0
+# the seeded char-512x6 LM, lm_panelty 0.8, len_bonus 4.8, group 8; cut
+# from the bench's 32 lines to one group of 8, since demo_full drives the
+# skip search on real full-width posteriors
+PEAKY_B, PEAKY_T, PEAKY_SEED = 8, 1200, 0
 SS_LP, SS_LB, SS_GROUP = 0.8, 4.8, 8
 RUN_MAX = 8                    # char-fast frames a segment (the default)
 # The trained demo/hard artifact: hctr-tiny and the 128d/3L char LM,
@@ -275,8 +292,8 @@ HOST_ROUTES = {
     "utp": dict(lm="tfm", use_lm_pred=True),
 }
 # LM proposals alone ask the LM once a searched frame: 150 lines took 149 s
-# on an H100 (1.01 lines/s), so the route serves the first 32
-UTP_LINES = 32
+# on an H100 (1.01 lines/s), so the route serves the first 8
+UTP_LINES = 8
 # demo/hard/RESULTS.md's three eval commands, after "-m hctr-tiny -f
 # <weights> -i demo/hard/data -bm -b 8", with the CER it reports
 EVAL_COMMANDS = {
@@ -289,6 +306,30 @@ EVAL_COMMANDS = {
 # The eval CER on the card against RESULTS.md's: 7 of the 1375 test
 # characters; bf16 forwards on two backends part at near-ties
 EVAL_CER_TOL = 0.005
+# The trained full-size artifact of demo/full (demo/full/RESULTS.md): the
+# 38M hctr and the 512d/6L char LM, packed by tools/convert_to_torch.py
+# --full, and the JAX eval CLI's texts on its 150 test lines (-b 25, bf16)
+DEMO_FULL = "demo/full/data"
+FULL_ASSETS = "handwritten_chinese_ocr_samples_torch/assets/demo_full"
+DEMO_FULL_MODEL = "hctr"
+FULL_BATCH = 25
+FULL_LP, FULL_LB = 0.8, 4.0
+# RESULTS.md's two commands, after "-m hctr -f <weights> -i demo/full/data
+# -cl demo/full/data/chars_list.txt -bm -b 25", with the CER it reports:
+# greedy is held within EVAL_CER_TOL of it, -ss at most FULL_SS_CER_MARGIN
+# above it
+FULL_EVAL_COMMANDS = {
+    "greedy": (["-dm", "greedy-search"], 0.0483),
+    "lm_ss": (["-dm", "beam-search", "-utp", "-uts", "-ss", "-tp",
+               f"{FULL_ASSETS}/lm", "-lp", str(FULL_LP), "-lb",
+               str(FULL_LB)], 0.0036),
+}
+FULL_SS_CER_MARGIN = 0.002
+FULL_SERVE_BATCH = 8           # ServingEngine's batch on the width buckets
+FULL_SEARCH_LINES = 8          # the full search: one batch of the widest
+FULL_PROFILED_FRAMES = 128     # its wall and device time over a batch's
+                               # first frames
+PARSER_TOL = 1e-6              # of the busy ms: raw events vs key_averages
 # K2 is held on the eval LM command's first call with a cache this deep
 # (demo/hard's lines hold 7-12 characters): a one-token cache is a copy
 EVAL_K2_DEPTH = 8
@@ -1366,10 +1407,13 @@ def profile_decode(engine: ServingEngine, logits: torch.Tensor, wanted=None,
                    optional=()):
     """One decode under torch.profiler: ``(device busy ms, device ms of each
     of the port's kernels, kernel launches, the 12 largest kernels, the
-    records of wanted``, see ``record_first``)."""
+    records of wanted``, see ``record_first``). Only the card's activity is
+    traced: the host's ops would add an event each and are not read (the
+    CPU, where a rehearsal runs, is traced there instead)."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU]) as prof:
         with (record_first(wanted, optional) if wanted else
               contextlib.nullcontext({})) as kept:
             engine.decode_logits(logits)
@@ -1385,12 +1429,48 @@ def profile_decode(engine: ServingEngine, logits: torch.Tensor, wanted=None,
 
 
 def device_kernels(prof) -> list:
-    """``(name, device ms, launches)`` of each kernel in a profile."""
+    """``(name, device ms, launches)`` of each kernel in a profile, summed by
+    name over the trace's raw events: ``key_averages`` would first build a
+    Python object an event, about 20 s for a decode's 100k launches."""
+    from torch.autograd import DeviceType
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = sums.get(e.name(), (0.0, 0))
+            sums[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(name, ms, n) for name, (ms, n) in sums.items()]
+
+
+def key_average_kernels(prof) -> list:
+    """``device_kernels`` through ``key_averages``, the parser of the
+    traces before: held against it on small traces (``forward_breakdown``),
+    where its cost does not count."""
     from torch.autograd import DeviceType
     return [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
+
+
+def parsers_agree(prof, kernels: list) -> dict:
+    """``kernels`` (``device_kernels(prof)``) beside ``key_average_kernels``
+    of the same trace: busy ms and launches each way, and the largest
+    difference of a kernel's ms. Fails unless both find the same kernels
+    with the same launches and ms within ``PARSER_TOL`` of the busy time."""
+    raw = {k: (ms, n) for k, ms, n in kernels}
+    avg = {k: (ms, n) for k, ms, n in key_average_kernels(prof)}
+    busy = sum(ms for ms, _ in raw.values())
+    diff = max((abs(raw[k][0] - avg[k][0]) for k in raw.keys() & avg.keys()),
+               default=0.0)
+    out = {"busy_ms": [busy, sum(ms for ms, _ in avg.values())],
+           "launches": [sum(n for _, n in raw.values()),
+                        sum(n for _, n in avg.values())],
+           "kernels": [len(raw), len(avg)], "max_kernel_ms_diff": diff}
+    check(raw.keys() == avg.keys()
+          and all(raw[k][1] == avg[k][1] for k in raw)
+          and diff <= PARSER_TOL * max(busy, 1e-9),
+          f"the trace's raw events and key_averages disagree: {out}")
+    return out
 
 
 def top_kernels(kernels: list) -> list:
@@ -1578,7 +1658,7 @@ def k1_exact(logits: torch.Tensor, prune: float, what: str,
 
 def phase_ss_peaky(dev, model, codec, state, lm):
     """Config #5: the skip search through ``ServingEngine.decode_logits`` on
-    ``synth_peaky_logits(32, 1200, 7375)``, group 8, lp 0.8, lb 4.8, the
+    ``synth_peaky_logits(PEAKY_B, 1200, 7375)``, group 8, lp 0.8, lb 4.8, the
     seeded char-512x6 LM in bf16. Returns the main path's launches and the
     K2-K4 inputs of the skip route's new shapes."""
     engine = ServingEngine(model, state, codec, widths=(LM_WIDTH,),
@@ -1988,27 +2068,46 @@ def host_split(engine: ServingEngine, paths, batch: int) -> dict:
             "posterior_bytes_a_batch": int(host.nbytes)}
 
 
-def eval_near_ties(dev, indices, batch: int) -> dict:
-    """How near a tie each eval line (by its index in the test split) came
-    on the card: its eval batch (the loader keeps the split's order,
-    ``batch`` lines a batch) through the recognizer in f32 and in bf16; the
-    smallest top-2 logit gap of each, and the largest |bf16 - f32| logit of
-    the line, and the frames whose argmax bf16 moved. A line whose f32 gap
-    is below twice that deviation is a bf16 near-tie: there a bf16
-    forward's argmax may go either way."""
+def f32_bf16_models(dev, tag: str, state, data: str) -> list:
+    """``tag`` with ``state``, once in f32 and once in bf16, on ``dev``."""
+    models = []
+    for dt in (torch.float32, torch.bfloat16):
+        model, _ = get_model_info(tag, data_dir=data, dtype=dt)
+        model.load_state_dict(state)
+        models.append(model.to(dev).eval())
+    return models
+
+
+def near_tie(models, x: torch.Tensor, row: int) -> dict:
+    """How near a tie row ``row`` of the batch ``x`` came through the f32
+    and the bf16 model: the smallest top-2 logit gap of each, the largest
+    |bf16 - f32| logit of the line, and the frames whose argmax bf16
+    moved. A line whose f32 gap is below twice that deviation is a bf16
+    near-tie: there a bf16 forward's argmax may go either way."""
+    with torch.inference_mode():
+        f32, bf16 = (m(x)[row].float() for m in models)
+    return {"gap_f32": top2_gap(f32), "gap_bf16": top2_gap(bf16),
+            "bf16_dev": (bf16 - f32).abs().max().item(),
+            "frames_argmax_moved": int(
+                (f32.argmax(-1) != bf16.argmax(-1)).sum())}
+
+
+def eval_near_ties(dev, indices, batch: int, tag: str = "hctr-tiny",
+                   state=None, data: str = DEMO_HARD) -> dict:
+    """``near_tie`` of each eval line (by its index in the test split of
+    ``data``) in its eval batch (the loader keeps the split's order,
+    ``batch`` lines a batch); the recognizer ``tag`` with ``state``
+    (default demo/hard's converted ``hctr-tiny``)."""
     from handwritten_chinese_ocr_samples_torch.data.bucketing import (
         AlignCollate, BucketSpec)
     from handwritten_chinese_ocr_samples_torch.data.dataset import (
         ImageDataset)
-    state = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
-                       weights_only=True)
-    models = []
-    for dt in (torch.float32, torch.bfloat16):
-        model, _ = get_model_info("hctr-tiny", data_dir=DEMO_HARD, dtype=dt)
-        model.load_state_dict(state)
-        models.append(model.to(dev).eval())
+    if state is None:
+        state = torch.load(os.path.join(DEMO_ASSETS, "hctr_tiny.pt"),
+                           weights_only=True)
+    models = f32_bf16_models(dev, tag, state, data)
     h = models[0].img_height
-    ds = ImageDataset(DEMO_HARD, (1, h), "test", batch_size=batch)
+    ds = ImageDataset(data, (1, h), "test", batch_size=batch)
     collate = AlignCollate(imgH=h, PAD=models[0].pad_mode,
                            bucket_spec=BucketSpec())
     out = {}
@@ -2016,12 +2115,7 @@ def eval_near_ties(dev, indices, batch: int) -> dict:
         first = i // batch * batch
         x = torch.from_numpy(collate([ds[j] for j in range(
             first, first + batch)])["images"]).to(dev)
-        with torch.inference_mode():
-            f32, bf16 = (m(x)[i - first].float() for m in models)
-        out[i] = {"gap_f32": top2_gap(f32), "gap_bf16": top2_gap(bf16),
-                  "bf16_dev": (bf16 - f32).abs().max().item(),
-                  "frames_argmax_moved": int(
-                      (f32.argmax(-1) != bf16.argmax(-1)).sum())}
+        out[i] = near_tie(models, x, i - first)
     return out
 
 
@@ -2128,6 +2222,436 @@ def phase_eval_demo_hard(dev) -> dict:
           "recognizer": "hctr-tiny (trained, bf16)",
           "cer_tolerance": EVAL_CER_TOL, **out, **int8})
     return counts, {k: v["i1_launches"] for k, v in int8.items()}
+
+
+# ------------------------------------------------------ demo/full (trained)
+def full_eval_command(dev, name: str, flags, files, ref, labels,
+                      state) -> dict:
+    """One eval CLI command on demo/full (``main(argv)``, the main path:
+    launch counts set to 0 just before and read just after): its CER, its
+    texts against the JAX eval's on every line ``texts.json`` records
+    under ``ref`` (each line that differs with its ``eval_near_ties``;
+    those beyond a bf16 near-tie listed), lines/s, and K1-K4's and I1's
+    launches."""
+    import io
+    from handwritten_chinese_ocr_samples_torch.cli import test as eval_cli
+    argv = ["-m", DEMO_FULL_MODEL, "-f", f"{FULL_ASSETS}/hctr.pt.xz", "-i",
+            DEMO_FULL, "-cl", f"{DEMO_FULL}/chars_list.txt", "-bm", "-b",
+            str(FULL_BATCH), "-tv", "-d", str(dev), *flags]
+    buf = io.StringIO()
+    reset_launches()              # ---- main path: the eval CLI
+    reset_i1()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launched = launch_counts()    # ---- end of main path
+    i1 = i1_counts()
+    text = buf.getvalue()
+    texts = [ln[5:] for ln in text.splitlines() if ln.startswith("PRE: ")]
+    printed = [float(ln.split(":", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("Total Test CER:")]
+    rate = [ln for ln in text.splitlines() if ln.startswith("lines: ")]
+    check(len(texts) == len(files) and printed == [result],
+          f"demo_full {name}: {len(texts)} texts, CER lines {printed}")
+    jax_texts = ref["texts"] if ref else []
+    differ = [i for i in range(len(jax_texts)) if texts[i] != jax_texts[i]]
+    gaps = (eval_near_ties(dev, differ, FULL_BATCH, DEMO_FULL_MODEL, state,
+                           DEMO_FULL) if differ else {})
+    beyond = []
+    for i in differ:
+        line = {"file": files[i], "card": texts[i], "jax": jax_texts[i],
+                **gaps[i]}
+        emit({"phase": "demo_full_difference", "command": name, **line})
+        if not line["gap_f32"] < 2 * line["bf16_dev"]:
+            beyond.append(files[i])
+    return {"beyond_near_tie": beyond, "argv": " ".join(argv), "cer": result,
+            "cer_check": cer(texts, [labels[n] for n in files]),
+            "jax_lines": len(jax_texts),
+            "jax_cer": ref["cer"] if ref else None,
+            "lines_differing_from_jax": len(differ),
+            "near_ties": {files[i]: gaps[i] for i in differ},
+            "rate": rate[-1] if rate else None, "wall_s_with_load": wall,
+            "lines_per_s_with_load": len(files) / wall,
+            "launches": launched, "i1_launches": i1, "texts": texts}
+
+
+def full_engine(model, state, codec, dev, lm=None, **kw) -> ServingEngine:
+    """demo/full's recognizer in an engine at its default width buckets
+    (512, 1024, 1600); with ``lm``, the LM-fused search at RESULTS.md's lp
+    0.8 and lb 4.0."""
+    if lm is not None:
+        kw = dict(decode_method="beam-search", lm=lm, use_lm_pred=True,
+                  use_lm_score=True, lm_panelty=FULL_LP, len_bonus=FULL_LB,
+                  **kw)
+    return ServingEngine(model, state, codec, device=dev, **kw)
+
+
+def bucket_logits(engine: ServingEngine, items, batch: int):
+    """The forward's logits of ``items`` (``preprocess`` output) batch by
+    batch per width bucket, as ``infer_files_batched`` groups them:
+    ``[(line indices, logits)]``, a ragged batch padded by repetition."""
+    groups = {}
+    for i, (w, _) in enumerate(items):
+        groups.setdefault(w, []).append(i)
+    out = []
+    with torch.inference_mode():
+        for idxs in groups.values():
+            bs = min(batch, len(idxs))
+            for s in range(0, len(idxs), bs):
+                chunk = idxs[s:s + bs]
+                rows = chunk + [chunk[-1]] * (bs - len(chunk))
+                x = torch.from_numpy(np.concatenate(
+                    [items[i][1] for i in rows])).to(engine.device)
+                out.append((chunk, engine.model((x.float() - 127.5)
+                                                / 127.5)))
+    return out
+
+
+def engine_near_ties(models, engine: ServingEngine, items, differ) -> dict:
+    """``near_tie`` of each line of ``differ`` on the engine's own input
+    (its width bucket)."""
+    out = {}
+    for i in differ:
+        x = (torch.from_numpy(items[i][1]).to(engine.device).float()
+             - 127.5) / 127.5
+        out[i] = near_tie(models, x, 0)
+    return out
+
+
+@contextlib.contextmanager
+def deepest_context():
+    """Track the largest cache length K2 (or its plain version) is handed
+    while the context is open, without a sync: yields a dict whose
+    ``"depth"`` is read after."""
+    names = ("peek_cache_attention", "peek_cache_attention_plain")
+    saved = {n: getattr(k2, n) for n in names}
+    deep = {"max": None}
+
+    def tracker(fn):
+        def call(*args, **kw):
+            m = args[3].max()
+            deep["max"] = m if deep["max"] is None else torch.maximum(
+                deep["max"], m)
+            return fn(*args, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(k2, n, tracker(fn))
+    out = {}
+    try:
+        yield out
+    finally:
+        for n, fn in saved.items():
+            setattr(k2, n, fn)
+        out["depth"] = int(deep["max"]) if deep["max"] is not None else 0
+
+
+def phase_demo_full(dev) -> dict:
+    """The trained full-size artifact of demo/full (the 38M ``hctr`` and the
+    512d/6L char LM, packed in ``assets/demo_full``) on its 150 test lines.
+    (a) RESULTS.md's two commands through the eval CLI (bf16, ``-b 25``):
+    greedy within ``EVAL_CER_TOL`` of 0.0483, ``-ss`` at most 0.0036 +
+    ``FULL_SS_CER_MARGIN``, texts equal to the JAX eval's on every line
+    ``texts.json`` records but for bf16 near-ties, K1-K4 launched on
+    ``-ss``. (b) ``ServingEngine`` at b8 on the width buckets: greedy
+    lines/s; ``-ss`` lines/s, segments a line, the segment budget, wall
+    and device ms a segment step, launches a step, idle share and peak
+    memory; both routes' texts held as in (a) against the JAX engine's
+    (``texts.json``'s ``engine_*``: the engine pads a line to its bucket,
+    the eval to its batch's width, and a line's texts may part there);
+    the full search on the 8 widest lines
+    (ms a frame, the deepest LM context, texts against the plain
+    versions' by ``serve_lm``'s rule). (c) the greedy command with
+    ``--int8``, within ``INT8_EVAL_CER_TOL`` of the bf16 CER, I1's
+    launches, and the int8 forward's ms beside bf16's at the eval's widest
+    bucket. Returns the launches of each main path."""
+    seconds, clock = {}, [time.perf_counter()]
+
+    def mark(what: str) -> None:
+        """The seconds since the previous mark, kept under ``what``."""
+        now = time.perf_counter()
+        seconds[what] = now - clock[0]
+        clock[0] = now
+
+    state = normalize_serving_dtype(load_packed(f"{FULL_ASSETS}/hctr.pt.xz"))
+    mark("load_recognizer")
+    with open(os.path.join(FULL_ASSETS, "texts.json"), encoding="utf-8") as f:
+        ref = json.load(f)
+    with open(os.path.join(DEMO_FULL, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        labels = dict(line.rstrip("\n").split(",", 1) for line in f
+                      if line.strip())
+    files = ref["files"]
+    truth = [labels[n] for n in files]
+    check(ref["batch"] == FULL_BATCH, f"texts.json batch {ref['batch']}")
+    gates = []                    # checked after the phase's line
+
+    def gate(cond: bool, what: str) -> None:
+        gates.append((bool(cond), what))
+
+    # (a) the eval CLI
+    evals = {}
+    for name, (flags, results_md) in FULL_EVAL_COMMANDS.items():
+        evals[name] = full_eval_command(dev, name, flags, files, ref[name],
+                                        labels, state)
+        evals[name]["results_md_cer"] = results_md
+        mark(f"eval_{name}")
+        gate(not evals[name]["beyond_near_tie"],
+             f"demo_full eval {name}: lines differ from the JAX eval's "
+             f"beyond a bf16 near-tie: {evals[name]['beyond_near_tie']}")
+    g, ss = evals["greedy"]["cer"], evals["lm_ss"]["cer"]
+    gate(abs(g - FULL_EVAL_COMMANDS["greedy"][1]) <= EVAL_CER_TOL,
+         f"demo_full greedy CER {g} vs RESULTS.md's 0.0483")
+    gate(ss <= FULL_EVAL_COMMANDS["lm_ss"][1] + FULL_SS_CER_MARGIN,
+         f"demo_full -ss CER {ss} vs RESULTS.md's 0.0036")
+    eval_counts = evals["lm_ss"]["launches"]
+    gate(all(v > 0 for v in eval_counts.values()),
+         f"demo_full eval -ss launches {eval_counts}")
+    # (c) int8: the greedy command with --int8, calibrated on its first
+    # batch
+    q = full_eval_command(dev, "greedy_int8",
+                          FULL_EVAL_COMMANDS["greedy"][0] + ["--int8"],
+                          files, None, labels, state)
+    n_batches = len(files) // FULL_BATCH
+    mark("eval_greedy_int8")
+    gate(abs(q["cer"] - g) <= INT8_EVAL_CER_TOL,
+         f"demo_full int8 greedy CER {q['cer']} vs bf16 {g}")
+    gate(q["i1_launches"] == i1_per(HCTR_SITES, HCTR_WGMMA, n_batches),
+         f"demo_full int8: I1 launches {q['i1_launches']}")
+    # (b) ServingEngine on the width buckets, b8
+    chars = load_chars_list(f"{DEMO_FULL}/chars_list.txt")
+    codec = CTCCodec(chars)
+    model, _ = get_model_info(DEMO_FULL_MODEL, dtype=torch.bfloat16,
+                              chars_list_file=f"{DEMO_FULL}/chars_list.txt")
+    paths = [os.path.join(DEMO_FULL, "test", n) for n in files]
+    greedy = full_engine(model, state, codec, dev)
+    items = [greedy.preprocess_bucketed(p) for p in paths]
+    greedy.infer_files_batched(paths[:FULL_SERVE_BATCH], FULL_SERVE_BATCH)
+    torch.cuda.synchronize()
+    texts_g, lps_g = greedy.infer_files_batched(paths, FULL_SERVE_BATCH)
+    mark("serve_greedy")
+    models = []                   # the f32 and bf16 recognizers, once
+
+    def engine_differences(route: str, got: list, engine) -> dict:
+        """Each line of ``got`` that differs from the JAX engine's text
+        (``texts.json``'s ``engine_<route>``), with its ``near_tie`` on
+        the engine's input; beyond a bf16 near-tie it fails the phase."""
+        want = ref[f"engine_{route}"]["texts"]
+        differ = [i for i in range(len(want)) if got[i] != want[i]]
+        if differ and not models:
+            models.extend(f32_bf16_models(dev, DEMO_FULL_MODEL, state,
+                                          DEMO_FULL))
+        gaps = engine_near_ties(models, engine, items, differ)
+        for i in differ:
+            line = {"file": files[i], "card": got[i], "jax": want[i],
+                    **gaps[i]}
+            emit({"phase": "demo_full_difference",
+                  "command": f"engine_{route}", **line})
+            gate(line["gap_f32"] < 2 * line["bf16_dev"],
+                 f"demo_full engine {route}: {files[i]} differs from the "
+                 f"JAX engine's text beyond a bf16 near-tie: {line}")
+        return {files[i]: gaps[i] for i in differ}
+
+    greedy_ties = engine_differences("greedy", texts_g, greedy)
+    del greedy
+    lm = TorchLMBackend(*load_lm(f"{FULL_ASSETS}/lm"))
+    mark("load_lm")
+    engine = full_engine(model, state, codec, dev, lm, skip_search=True)
+    engine.infer_files_batched(paths[:FULL_SERVE_BATCH], FULL_SERVE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()              # ---- main path: -ss through the engine
+    t0 = time.perf_counter()
+    texts, lps = engine.infer_files_batched(paths, FULL_SERVE_BATCH)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()      # ---- end of main path
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    mark("serve_ss")
+    beam = engine._lm_beam
+    batches = bucket_logits(engine, items, FULL_SERVE_BATCH)
+    steps, segs = 0, []
+    for chunk, logits in batches:
+        steps += segments_stepped(engine, logits)
+        _, ci, _, n_above = k1_outputs(engine, logits)
+        segs += blm.count_segments(ci, n_above, unknown_id=codec.unknown_id,
+                                   run_max=beam.run_max)[:len(chunk)].tolist()
+    try:
+        check_skip_counts(counts, steps, len(batches), "demo_full -ss")
+    except AssertionError as e:
+        gate(False, str(e))
+    ss_ties = engine_differences("ss", texts, engine)
+    del models[:]
+    mark("serve_ss_counts_and_near_ties")
+    # a batch of the widest bucket again: unprofiled wall time, then the
+    # profiled decode (device busy time, every kernel launched)
+    chunk, logits = max(batches, key=lambda b: b[1].shape[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        engine.decode_logits(logits)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    batch_steps = segments_stepped(engine, logits)
+    busy_ms, own, n_launch, top, _ = profile_decode(engine, logits)
+    mark("serve_ss_profiled_batch")
+    ss_out = {
+        "lines_per_s": lps, "wall_s": wall_s, "batch": FULL_SERVE_BATCH,
+        "widths": list(engine.widths), "lm_batches": len(batches),
+        "group": beam.last_group, "ctx": beam._ctx,
+        "seg_budget": beam._budget, "peek_rows": beam._peek,
+        "segments_per_line": statistics.mean(segs),
+        "segments_min_max": [min(segs), max(segs)],
+        "segment_steps": steps,
+        "wall_ms_per_segment_step": wall_s * 1e3 / steps,
+        "launches": counts, "k1_k4_launches_per_step":
+            sum(counts.values()) / steps,
+        "peak_mem_mib": peak_mib, "cer": cer(texts, truth),
+        "lines_differing_from_jax_engine": len(ss_ties),
+        "near_ties": ss_ties,
+        "lines_differing_from_eval": sum(
+            a != b for a, b in zip(texts, ref["lm_ss"]["texts"])),
+        "profiled_batch": {
+            "lines": len(chunk), "frames": int(logits.shape[1]),
+            "wall_ms": batch_ms, "segment_steps": batch_steps,
+            "wall_ms_per_segment_step": batch_ms / batch_steps,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "device_ms_per_segment_step": (busy_ms / batch_steps
+                                           if busy_ms > 0
+                                           else "not measured"),
+            "device_idle_share": (1 - busy_ms / batch_ms if busy_ms > 0
+                                  else "not measured"),
+            "kernel_launches": n_launch,
+            "launches_per_segment_step": n_launch / batch_steps,
+            "own_kernels_ms": own, "top_kernels": top}}
+    del engine
+    # the full search (-utp -uts, no -ss) on one batch of the widest lines
+    widths = [png_width(p) for p in paths]
+    widest = sorted(sorted(range(len(files)), key=lambda i: -widths[i])
+                    [:FULL_SEARCH_LINES])
+    full = full_engine(model, state, codec, dev, lm)
+    sub = [items[i] for i in widest]
+    (_, logits), = bucket_logits(full, sub, FULL_SEARCH_LINES)
+    frames = searched_frames(logits, codec.unknown_id, FULL_SEARCH_LINES)
+    with torch.inference_mode():
+        full.decode_logits(logits[:, :LM_WIDTH].contiguous())  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()          # ---- main path: the full search
+        t0 = time.perf_counter()
+        texts_full = full.decode_logits(logits)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        full_counts = launch_counts()  # ---- end of main path
+    mark("full_search")
+    gate(full_counts["lse_rows"] == full_counts["gather_write_kv"] == frames
+         and full_counts["peek_cache_attention"] == LM_LAYERS * frames
+         and full_counts["topk_logsoftmax"] == 1,
+         f"demo_full full search: launches {full_counts} vs {frames} "
+         "frames searched")
+    with torch.inference_mode(), plain_kernels(), deepest_context() as deep:
+        want = full.decode_logits(logits)
+    divergences = []
+    if texts_full != want:
+        div = first_divergence(full, logits)
+        div["lines"] = [widest[i] for i, (a, b) in
+                        enumerate(zip(texts_full, want)) if a != b]
+        divergences.append(div)
+        emit({"phase": "demo_full_full_search_divergence", **div})
+        gate(div["diff"] < NEAR_TIE, "demo_full full search: kernels and "
+             f"plain versions decode differently beyond a near-tie: {div}")
+    mark("full_search_plain")
+    head = logits[:, :FULL_PROFILED_FRAMES].contiguous()
+    head_frames = searched_frames(head, codec.unknown_id, FULL_SEARCH_LINES)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        full.decode_logits(head)
+        torch.cuda.synchronize()
+        head_ms = (time.perf_counter() - t0) * 1e3
+    busy_head, _, launches_head, _, _ = profile_decode(full, head)
+    mark("full_search_profiled_frames")
+    full_out = {
+        "lines": [files[i] for i in widest],
+        "line_widths": [widths[i] for i in widest],
+        "bucket": int(logits.shape[1]),
+        "frames_searched": frames, "wall_s": full_s,
+        "wall_ms_per_frame": full_s * 1e3 / frames, "ctx": full._lm_beam._ctx,
+        "deepest_context": deep["depth"],
+        "chars_per_line": statistics.mean(len(t) for t in texts_full),
+        "launches": full_counts, "texts_equal_plain": not divergences,
+        "near_ties": len(divergences),
+        "cer": cer(texts_full, [truth[i] for i in widest]),
+        "profiled_first_frames": {
+            "frames": head_frames,
+            "wall_ms_per_frame": head_ms / head_frames,
+            "device_ms_per_frame": (busy_head / head_frames
+                                    if busy_head > 0 else "not measured"),
+            "device_idle_share": (1 - busy_head / head_ms if busy_head > 0
+                                  else "not measured"),
+            "launches_per_frame": launches_head / head_frames}}
+    del full, lm
+    # (c) the int8 forward beside bf16's at the eval's widest bucket
+    int8_fwd = int8_forward_ms(dev, state, paths, widths)
+    mark("int8_forward_ms")
+    for e in evals.values():
+        e.pop("texts")
+    q.pop("texts")
+    emit({"phase": "demo_full",
+          "model": f"{DEMO_FULL_MODEL} (trained, bf16)",
+          "lm": "char 512d/6L (trained, bf16)", "lines": len(files),
+          "seconds": seconds, "eval": evals, "eval_int8": {**q,
+          **int8_fwd}, "serve_greedy": {
+              "lines_per_s": lps_g, "cer": cer(texts_g, truth),
+              "lines_differing_from_jax_engine": len(greedy_ties),
+              "near_ties": greedy_ties,
+              "lines_differing_from_eval": sum(
+                  a != b for a, b in zip(texts_g,
+                                         ref["greedy"]["texts"]))},
+          "serve_ss": ss_out, "full_search": full_out,
+          "gates_failed": [what for ok, what in gates if not ok]})
+    for ok, what in gates:
+        check(ok, what)
+    return {"eval_ss": eval_counts, "serve_ss": counts,
+            "full_search": full_counts, "int8": q["i1_launches"]}
+
+
+def png_width(path: str) -> int:
+    """A PNG's width, from its header."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    return int.from_bytes(head[16:20], "big")
+
+
+def int8_forward_ms(dev, state, paths, widths) -> dict:
+    """The full-size recognizer's forward, int8 (calibrated on this batch)
+    and bf16, at ``FULL_BATCH`` lines of the eval's widest bucket: CUDA
+    events ms of each, and I1's launches a forward by route."""
+    from handwritten_chinese_ocr_samples_torch.data.bucketing import (
+        BucketSpec, normalize_pad_batch)
+    from handwritten_chinese_ocr_samples_torch.data.dataset import (
+        read_resize_image)
+    order = sorted(range(len(paths)), key=lambda i: -widths[i])
+    images = [read_resize_image(paths[i], 128) for i in order[:FULL_BATCH]]
+    width = BucketSpec().bucket_for(max(im.shape[1] for im in images))
+    batch, _ = normalize_pad_batch(images, width)
+    x = torch.from_numpy(batch).to(dev)
+    models = {}
+    for name in ("bf16", "int8"):
+        model, _ = get_model_info(DEMO_FULL_MODEL, data_dir=DEMO_FULL,
+                                  dtype=torch.bfloat16)
+        model.load_state_dict(state)
+        models[name] = model.to(dev).eval()
+    with torch.inference_mode():
+        quant.calibrate_for_model(models["int8"], [x])
+        ms = {name: cuda_ms(lambda: m(x)) for name, m in models.items()}
+        reset_i1()
+        models["int8"](x)
+        per_forward = i1_counts()
+    check(per_forward == i1_per(HCTR_SITES, HCTR_WGMMA),
+          f"demo_full int8: I1 launches a forward {per_forward}")
+    return {"forward_ms": ms, "forward_batch": FULL_BATCH,
+            "forward_width": width, "i1_launches_per_forward": per_forward}
 
 
 # ------------------------------------------------------------ int8 (I1)
@@ -2453,13 +2977,15 @@ def forward_breakdown(model, x) -> dict:
         model(x)
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
+    agree = parsers_agree(prof, kernels)
     groups = {name: 0.0 for name, _ in FORWARD_GROUPS}
     groups["other"] = 0.0
     for key, ms, _ in kernels:
         name = next((n for n, tag in FORWARD_GROUPS if tag in key), "other")
         groups[name] += ms
     return {"device_ms": sum(ms for _, ms, _ in kernels),
-            "launches": sum(n for _, _, n in kernels), "by_group_ms": groups}
+            "launches": sum(n for _, _, n in kernels), "by_group_ms": groups,
+            "parsers": agree}
 
 
 def phase_serve_int8(dev, codec, state) -> dict:
@@ -4384,6 +4910,8 @@ DDP_WIDTH, DDP_BATCH, DDP_STEPS, DDP_LR = 1152, 16, 3, 0.01
 DDP_PARITY_WIDTH, DDP_PARITY_STEPS = 256, 2
 # eval_dp: demo/hard's 150 test lines at -b 10 (15 full batches, 5 rows a
 # shard), recognizer and LM in f32, two shards on the one card
+# the sort-merge beam serves 7.4 lines/s on the card: its first 64 lines
+MERGE_BEAM_LINES = 64
 DP_BATCH = 10
 DP_COMMANDS = {"greedy": EVAL_COMMANDS["greedy"][0],
                "lm_ss": EVAL_COMMANDS["lm_ss"][0] + ["--lm-f32"]}
@@ -4760,9 +5288,10 @@ def default_merge_texts(dev, paths, batch: int) -> dict:
 
 
 def phase_merges(dev, default_texts: dict | None) -> dict:
-    """The two opt-in merges on demo/hard's 150 lines, served at batch 8:
-    the plain beam with ``HCTR_DENSE_MERGE=0`` (the sort merge) and ``-ss``
-    with ``HCTR_LM_DENSE_MERGE=1`` (the LM search's dense merge), read when
+    """The two opt-in merges on demo/hard's lines, served at batch 8: the
+    plain beam with ``HCTR_DENSE_MERGE=0`` (the sort merge) on the first
+    ``MERGE_BEAM_LINES`` and ``-ss`` with ``HCTR_LM_DENSE_MERGE=1`` (the LM
+    search's dense merge) on all 150, read when
     the engines are built; texts against the default merges' (from
     ``demo_hard``), each differing line printed with its score gap (on
     ``-ss`` it must be a near-tie). Returns the ``-ss`` run's launches."""
@@ -4789,9 +5318,10 @@ def phase_merges(dev, default_texts: dict | None) -> dict:
     out, counts = {}, {}
     for route, variant in (("beam", "sort"), ("ss", "dense")):
         engine = engines[route]
+        n = MERGE_BEAM_LINES if route == "beam" else len(paths)
         reset_launches()          # ---- main path: the variant's route
         texts, lps = engine.infer_files_batched(
-            paths, batch_size=committed["batch"])
+            paths[:n], batch_size=committed["batch"])
         launched = launch_counts()  # ---- end of main path
         if route == "ss":
             counts = launched
@@ -5078,6 +5608,9 @@ def smoke() -> int:
             phase_eval_dp(dev)
             phase_train_cli_ddp(started, None)
         return 0
+    if "--demo-full" in sys.argv[1:]:  # the trained demo/full artifact
+        phase_demo_full(dev)
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 and I1 alone, times first
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -5104,6 +5637,10 @@ def smoke() -> int:
     phase_demo_hard_host(dev)
     paths["eval_lm_ss"], eval_int8 = phase_eval_demo_hard(dev)
     int8_paths.update(eval_int8)
+    full = phase_demo_full(dev)
+    paths["demo_full_eval_ss"] = full["eval_ss"]
+    paths["demo_full_serve_ss"] = full["serve_ss"]
+    int8_paths["demo_full_int8"] = full["int8"]
     int8_paths.update(phase_export(dev, codec, state))
     phase_train_parity(dev)
     train = phase_train_full(dev)
@@ -5131,8 +5668,14 @@ def smoke() -> int:
     # the kernels' launches on the skip route's main paths
     skip = {name: sum(c[name] for c in paths.values())
             for name in launch_counts()}
+    # the kernel rows: the skip route's main paths and demo/full's full
+    # search
+    rows_launches = {name: skip[name] + full["full_search"][name]
+                     for name in skip}
     emit({"phase": "launches", "beam": {"topk_logsoftmax": launches},
-          "lm_full_search": lm_counts, **paths, "skip_route": skip,
+          "lm_full_search": lm_counts,
+          "demo_full_full_search": full["full_search"], **paths,
+          "skip_route": skip,
           "int8_conv": int8_paths, "training": train["k1_k4_launches"],
           "classify_training": classify["k1_k4_i1_launches"],
           "profile_eval_topk_logsoftmax": profiled_k1,
@@ -5145,7 +5688,7 @@ def smoke() -> int:
         "name": "topk_logsoftmax", "route": "cuda",
         "source": "handwritten_chinese_ocr_samples_torch/csrc/topk_logsoftmax.cu",
         "replaces": "handwritten_chinese_ocr_samples_tpu/ops/topk_logsoftmax.py:67",
-        "launches": skip["topk_logsoftmax"],
+        "launches": rows_launches["topk_logsoftmax"],
         "max_abs_err": max(k_err, serve_err),
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -5161,7 +5704,7 @@ def smoke() -> int:
             "name": kname, "route": "cuda",
             "source": f"handwritten_chinese_ocr_samples_torch/csrc/{src}",
             "replaces": f"handwritten_chinese_ocr_samples_tpu/{tpu}",
-            "launches": skip[kname],
+            "launches": rows_launches[kname],
             "max_abs_err": max(t["max_abs_err"], ss_err[kname]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -119,16 +119,21 @@ def build_argparser():
 
 def load_weights(spec: str, model):
     """``seed:<n>`` -> seeded random weights; a reference ``.pth`` or
-    ``.pth.tar`` -> its converted state dict; else a ``torch.save``d state
-    dict or a checkpoint of the port's trainer."""
+    ``.pth.tar`` -> its converted state dict; a packed ``.pt.xz``
+    (``utils.weights.load_packed``: its parts and manifest beside it) -> its
+    state dict in f32; else a ``torch.save``d state dict or a checkpoint of
+    the port's trainer."""
     import torch
     from ..train.checkpoint import state_dict_of
-    from ..utils.weights import seeded_state_dict
+    from ..utils.weights import (PACKED_SUFFIX, load_packed,
+                                 normalize_serving_dtype, seeded_state_dict)
     if spec.startswith("seed:"):
         return seeded_state_dict(model, int(spec.split(":", 1)[1]))
     if spec.endswith((".pth", ".pth.tar")):
         from ..compat.torch_convert import convert_checkpoint
         return convert_checkpoint(spec)
+    if spec.endswith(PACKED_SUFFIX):
+        return normalize_serving_dtype(load_packed(spec))
     if os.path.isdir(spec):
         raise ValueError(
             f"{spec} is a directory (an orbax checkpoint?): the port reads "

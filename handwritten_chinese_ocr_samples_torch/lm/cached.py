@@ -247,3 +247,56 @@ class CachedLM:
         lengths = torch.where(write_mask, cache.lengths + 1, cache.lengths)
         return logits, LMCache(k=torch.stack(new_k), v=torch.stack(new_v),
                                lengths=lengths.to(torch.int32))
+
+    # ---------------------------------------------------------------- peek
+    def peek_logprobs(self, cache: LMCache, next_logp: torch.Tensor,
+                      suffix: torch.Tensor,
+                      suffix_len: torch.Tensor) -> torch.Tensor:
+        """Sum of the log-probs of ``suffix`` given each element's cached
+        prefix, committing nothing to the cache.
+
+        ``next_logp (B, V)`` is the log-softmax of the last committed
+        ``step``'s logits and scores ``suffix[:, 0]``; the other suffix
+        tokens run transiently, their k/v in ``(B, S, H, Dh)`` scratch
+        appended to the cache's context. ``suffix (B, S)``, ``suffix_len
+        (B,) <= S``; returns ``(B,)`` f32."""
+        B, S = suffix.shape
+        Lmax = cache.k.shape[2]
+        dev = suffix.device
+        suffix = suffix.long()
+        lengths = cache.lengths.long()
+        cache_mask = (torch.arange(Lmax, device=dev)[None, :]
+                      < lengths[:, None])                      # (B, Lmax)
+        first = next_logp.gather(-1, suffix[:, :1])[:, 0]
+        total = torch.where(suffix_len > 0, first, torch.zeros_like(first))
+        if S == 1:
+            return total
+        scratch_k = cache.k.new_zeros(
+            (self.n_layers, B, S, self.n_heads, self.d_head))
+        scratch_v = torch.zeros_like(scratch_k)
+        s_ids = torch.arange(S, device=dev)[None, :]
+        # token s sits at absolute position lengths + s
+        x = self._embed_token(suffix[:, 0], lengths)
+        for s in range(S - 1):
+            h = x
+            mask = torch.cat([cache_mask, (s_ids <= s).expand(B, S)], dim=1)
+            for li in range(self.n_layers):
+                lp = self.layers[li]
+                q, k_t, v_t = self._qkv_proj(self._ln(h, lp["ln1"]), li)
+                scratch_k[li, :, s] = k_t.to(scratch_k.dtype)
+                scratch_v[li, :, s] = v_t.to(scratch_v.dtype)
+                ctx_k = torch.cat([cache.k[li], scratch_k[li]], dim=1)
+                ctx_v = torch.cat([cache.v[li], scratch_v[li]], dim=1)
+                sc = torch.einsum("bhk,blhk->bhl", q.float(), ctx_k.float())
+                sc = torch.where(mask[:, None, :],
+                                 sc / math.sqrt(self.d_head), NEG)
+                wts = torch.softmax(sc, dim=-1).to(ctx_v.dtype)
+                h = h + self._attn_out(
+                    torch.einsum("bhl,blhk->bhk", wts, ctx_v), li)
+                h = h + self._ff(self._ln(h, lp["ln2"]), li)
+            logp = torch.log_softmax(self._logits(h), dim=-1)
+            contrib = logp.gather(-1, suffix[:, s + 1:s + 2])[:, 0]
+            total = total + torch.where(s + 1 < suffix_len, contrib,
+                                        torch.zeros_like(contrib))
+            x = self._embed_token(suffix[:, s + 1], lengths + s + 1)
+        return total

@@ -8,7 +8,9 @@
     tokenizer's (7377 for the full-size 7373-character list);
   * a directory holding ``config.json``, ``dict.txt`` and ``weights.pt``, a
     torch state dict (``utils.weights.lm_flax_to_torch`` of the JAX
-    package's orbax ``weights/`` tree, converted where JAX is installed).
+    package's orbax ``weights/`` tree, converted where JAX is installed), or
+    instead of ``weights.pt`` the packed ``weights.pt.xz``
+    (``utils.weights.load_packed``), read in f32.
 
 ``save_lm`` writes such a directory (``config.json``, ``dict.txt``,
 ``weights.pt``) from a model, its state dict and its tokenizer.
@@ -22,6 +24,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils.weights import (PACKED_SUFFIX, load_packed,
+                             normalize_serving_dtype)
 from .model import CharTransformerLM, get_lm_config
 from .tokenizer import Tokenizer
 
@@ -59,14 +63,18 @@ def load_lm(spec: str, chars_list: Optional[str] = None
             raise FileNotFoundError(
                 f"{p} missing: an LM directory holds dict.txt, config.json "
                 f"and weights.pt")
-    if not os.path.isfile(weights):
+    packed = os.path.join(spec, "weights" + PACKED_SUFFIX)
+    if not os.path.isfile(weights) and not os.path.isfile(
+            packed + ".json"):
         hint = (" (it has an orbax weights/ tree: convert it first with "
                 "utils.weights.lm_flax_to_torch where JAX runs, and save "
                 "the result as weights.pt)"
                 if os.path.isdir(os.path.join(spec, "weights")) else "")
-        raise FileNotFoundError(f"{weights} missing{hint}")
+        raise FileNotFoundError(f"{weights} (or {packed}) missing{hint}")
     tokenizer = Tokenizer(dict_file)
     with open(cfg_file) as f:
         cfg = json.load(f)
-    state = torch.load(weights, map_location="cpu", weights_only=True)
-    return CharTransformerLM(**cfg), state, tokenizer
+    state = (torch.load(weights, map_location="cpu", weights_only=True)
+             if os.path.isfile(weights) else load_packed(packed))
+    return (CharTransformerLM(**cfg), normalize_serving_dtype(state),
+            tokenizer)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..train.step import ADAM_B1, ADAM_B2, ADAM_EPS, global_norm
-from ..utils.weights import seeded_lm_state_dict
+from ..utils.weights import init_lm_state_dict
 from .model import CharTransformerLM
 from .tokenizer import Tokenizer
 
@@ -170,9 +170,9 @@ def train_char_lm(
     device: str | torch.device = "cuda",
     generator: Optional[torch.Generator] = None,
 ):
-    """Train a ``CharTransformerLM`` from the seeded flax-style weights
-    (``utils/weights.seeded_lm_state_dict``); returns ``(model, state
-    dict, tokenizer)``, the state dict f32 on ``device``. ``generator``
+    """Train a ``CharTransformerLM`` from flax's initialisation drawn from
+    ``seed`` (``utils/weights.init_lm_state_dict``); returns ``(model,
+    state dict, tokenizer)``, the state dict f32 on ``device``. ``generator``
     draws the dropout masks (default: one on ``device`` seeded with
     ``seed + 1``)."""
     device = torch.device(device)
@@ -181,7 +181,8 @@ def train_char_lm(
                               d_model=d_model, n_layers=n_layers,
                               max_len=max_len, dtype=dtype)
     params = {k: v.to(device) for k, v in
-              seeded_lm_state_dict(model.config(), seed).items()}
+              init_lm_state_dict(model.config(),
+                                 torch.Generator().manual_seed(seed)).items()}
     model.load_state_dict(params)
     model.to(device)
     if generator is None:

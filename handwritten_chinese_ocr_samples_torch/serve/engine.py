@@ -16,7 +16,7 @@ when a file is read; array input needs no image library.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -174,13 +174,20 @@ class ServingEngine:
         return self.preprocess_array(_read_gray(image_file))
 
     @torch.inference_mode()
-    def infer_batch(self, batch_u8: np.ndarray) -> List[str]:
-        """``(b, H, W, 1)`` uint8 batch -> one text per row."""
+    def dispatch_batch(self, batch_u8: np.ndarray
+                       ) -> Callable[[], List[str]]:
+        """Queue the forward and the decode's device work of a ``(b, H, W,
+        1)`` uint8 batch; returns ``finalize() -> one text per row``, the
+        host tail (D2H, the LM search's host loop, strings)."""
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
         x = (x.float() - 127.5) / 127.5
         if self._int8 and self._quant is None:
             self._quant = quant.calibrate_for_model(self.model, [x])
-        return self.decode_logits(self.model(x))
+        return self.route.dispatch(self.model(x))
+
+    def infer_batch(self, batch_u8: np.ndarray) -> List[str]:
+        """``(b, H, W, 1)`` uint8 batch -> one text per row."""
+        return self.dispatch_batch(batch_u8)()
 
     @torch.inference_mode()
     def decode_logits(self, logits: torch.Tensor) -> List[str]:
@@ -205,12 +212,21 @@ class ServingEngine:
     def _infer_bucketed(self, items, batch_size: int):
         """``[(bucket_width, (1, H, W, 1) array)]`` -> texts in input order
         plus lines/sec; batches per bucket, the last one padded by
-        repetition and cut after decode."""
+        repetition and cut after decode. One batch in flight, as in the JAX
+        engine: batch k+1's forward and decode dispatch are queued before
+        batch k's host tail runs."""
         groups: Dict[int, List[int]] = {}
         for i, (w, _) in enumerate(items):
             groups.setdefault(w, []).append(i)
         texts: List[str] = [""] * len(items)
+
+        def consume(entry):
+            chunk, finalize = entry
+            for i, t in zip(chunk, finalize()):
+                texts[i] = t
+
         t0 = time.perf_counter()
+        prev = None
         for idxs in groups.values():
             bs = min(batch_size, len(idxs))
             for s in range(0, len(idxs), bs):
@@ -218,8 +234,12 @@ class ServingEngine:
                 batch = np.concatenate(
                     [items[i][1] for i in chunk]
                     + [items[chunk[-1]][1]] * (bs - len(chunk)), axis=0)
-                for i, t in zip(chunk, self.infer_batch(batch)):
-                    texts[i] = t
+                pending = (chunk, self.dispatch_batch(batch))
+                if prev is not None:
+                    consume(prev)
+                prev = pending
+        if prev is not None:
+            consume(prev)
         dt = time.perf_counter() - t0
         return texts, (len(items) / dt if dt > 0 else 0.0)
 

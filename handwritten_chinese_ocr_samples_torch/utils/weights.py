@@ -19,15 +19,22 @@ way to get weights onto a machine that cannot read the orbax checkpoints.
 ``init_state_dict`` is the start of a training run from scratch: flax's
 default initialisers, drawn from a ``torch.Generator``.
 
-``lm_flax_to_torch`` and ``seeded_lm_state_dict`` do the same for the char
-LM (``lm/model.CharTransformerLM``): flax attention kernels ``(d, H, Dh)``
-become ``nn.Linear`` weights ``(H*Dh, d)``, the output kernel ``(H, Dh, d)``
-becomes ``(d, H*Dh)``, and ``embed/embedding`` ``(V, d)`` is the tied head.
+``lm_flax_to_torch``, ``seeded_lm_state_dict`` and ``init_lm_state_dict``
+do the same for the char LM (``lm/model.CharTransformerLM``): flax
+attention kernels ``(d, H, Dh)`` become ``nn.Linear`` weights ``(H*Dh,
+d)``, the output kernel ``(H, Dh, d)`` becomes ``(d, H*Dh)``, and
+``embed/embedding`` ``(V, d)`` is the tied head.
 
 ``normalize_serving_dtype`` is the serving dtype contract (the JAX
 package's ``utils/ckpt_io.normalize_serving_dtype``): floating weights are
 f32 whatever they were stored in, and the model's compute dtype alone sets
 the compute.
+
+``save_packed`` and ``load_packed`` are the transport format of a large
+artifact: a state dict in its stored dtypes, ``torch.save``d,
+``lzma``-compressed and split into parts of at most ``PART_BYTES``, with a
+manifest of the parts' lengths and sha256 beside them, so that no file nears
+a host's file size limit.
 
 ``quant_flax_to_torch`` flattens the JAX package's nested int8 calibration
 tree (one input absmax a conv site) into the port's keys by module path.
@@ -35,7 +42,12 @@ tree (one input absmax a conv site) into the port's keys by module path.
 
 from __future__ import annotations
 
+import hashlib
+import io
+import json
+import lzma
 import math
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -113,6 +125,16 @@ def seeded_state_dict(model: torch.nn.Module,
 _TRUNC_STD = 0.87962566103423978
 
 
+def _lecun_normal(shape, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` draw of a kernel of ``shape``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(shape)
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                generator=generator)
+    return w
+
+
 def init_state_dict(model: torch.nn.Module,
                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """flax's default initialisation of ``model`` in f32: conv and dense
@@ -123,11 +145,7 @@ def init_state_dict(model: torch.nn.Module,
     for key, t in model.state_dict().items():
         name = key.rsplit(".", 1)[-1]
         if name == "weight" and t.dim() >= 2:
-            std = math.sqrt(1.0 / t[0].numel()) / _TRUNC_STD
-            w = torch.empty(t.shape)
-            torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                        generator=generator)
-            out[key] = w
+            out[key] = _lecun_normal(t.shape, t[0].numel(), generator)
         elif name in ("weight", "running_var"):
             out[key] = torch.ones(t.shape)
         else:
@@ -192,6 +210,34 @@ def seeded_lm_state_dict(config: Mapping,
     return out
 
 
+def init_lm_state_dict(config: Mapping,
+                       generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """flax's default initialisation of a ``CharTransformerLM`` of
+    ``config`` in f32, the start of a training run: the dense and attention
+    kernels lecun-normal (truncated at two standard deviations, as
+    ``init_state_dict`` draws the recognizer's), the embedding ~ N(0, 1/d)
+    and the positional embedding ~ N(0, 0.02^2) untruncated, biases 0,
+    LayerNorm at identity."""
+    from ..lm.model import CharTransformerLM
+    shapes = CharTransformerLM(**config).state_dict()
+    out = {}
+    for key, t in shapes.items():
+        name = key.rsplit(".", 1)[-1]
+        if key == "pos_embed":
+            out[key] = torch.randn(t.shape, generator=generator) * 0.02
+        elif key == "embed.weight":
+            out[key] = torch.randn(t.shape, generator=generator) / math.sqrt(
+                t.shape[1])
+        elif name == "weight" and t.dim() == 2:
+            # (out, in): fan_in is the row length
+            out[key] = _lecun_normal(t.shape, t.shape[1], generator)
+        elif name == "weight":
+            out[key] = torch.ones(t.shape)
+        else:
+            out[key] = torch.zeros(t.shape)
+    return out
+
+
 def quant_flax_to_torch(tree: Mapping) -> Dict[str, float]:
     """The JAX package's calibration tree ``{"cnn": {"block1_0": {"conv1":
     a}}}`` -> ``{"cnn.block1_0.conv1": a}`` (``serve/quant``'s keys), each
@@ -207,3 +253,73 @@ def normalize_serving_dtype(state: Mapping[str, torch.Tensor]
     devices."""
     return {k: v.float() if v.is_floating_point() else v
             for k, v in state.items()}
+
+
+PART_BYTES = 48_000_000        # the largest part of a packed file
+PACKED_SUFFIX = ".pt.xz"
+
+
+def _manifest_path(path: str) -> str:
+    return path + ".json"
+
+
+def save_packed(state: Mapping[str, torch.Tensor], path: str,
+                part_bytes: int = PART_BYTES) -> dict:
+    """Write ``state`` as ``path.0``, ``path.1``, ... (its ``torch.save``
+    bytes, ``lzma``-compressed, cut into parts of at most ``part_bytes``)
+    and the manifest ``path.json`` (each part's name, length and sha256);
+    returns the manifest. Parts of an earlier, longer packing are
+    removed."""
+    buf = io.BytesIO()
+    torch.save(dict(state), buf)
+    packed = lzma.compress(buf.getvalue())
+    base = os.path.basename(path)
+    parts = []
+    for i, at in enumerate(range(0, len(packed), part_bytes)):
+        chunk = packed[at:at + part_bytes]
+        with open(f"{path}.{i}", "wb") as f:
+            f.write(chunk)
+        parts.append({"name": f"{base}.{i}", "bytes": len(chunk),
+                      "sha256": hashlib.sha256(chunk).hexdigest()})
+    folder = os.path.dirname(path) or "."
+    for name in os.listdir(folder):
+        index = name[len(base) + 1:]
+        if (name.startswith(base + ".") and index.isdigit()
+                and int(index) >= len(parts)):
+            os.remove(os.path.join(folder, name))
+    manifest = {"format": "torch.save + lzma", "raw_bytes": buf.tell(),
+                "parts": parts}
+    with open(_manifest_path(path), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    return manifest
+
+
+def load_packed(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict that ``save_packed`` wrote at ``path``, on the CPU in
+    its stored dtypes. Raises ``FileNotFoundError`` for a missing manifest
+    or part and ``ValueError`` for a part whose length or sha256 is not the
+    manifest's, naming the part."""
+    manifest_file = _manifest_path(path)
+    if not os.path.isfile(manifest_file):
+        raise FileNotFoundError(f"{manifest_file} missing: a packed file "
+                                "is its parts and this manifest")
+    with open(manifest_file) as f:
+        manifest = json.load(f)
+    folder = os.path.dirname(path)
+    chunks = []
+    for part in manifest["parts"]:
+        name = os.path.join(folder, part["name"])
+        if not os.path.isfile(name):
+            raise FileNotFoundError(f"part {name} of {path} missing")
+        with open(name, "rb") as f:
+            chunk = f.read()
+        if len(chunk) != part["bytes"]:
+            raise ValueError(f"part {name} of {path} holds {len(chunk)} "
+                             f"bytes, its manifest {part['bytes']}")
+        if hashlib.sha256(chunk).hexdigest() != part["sha256"]:
+            raise ValueError(f"part {name} of {path} fails its sha256")
+        chunks.append(chunk)
+    raw = lzma.decompress(b"".join(chunks))
+    return torch.load(io.BytesIO(raw), map_location="cpu",
+                      weights_only=True)

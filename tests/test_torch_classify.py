@@ -46,6 +46,8 @@ from handwritten_chinese_ocr_samples_torch.train.trainer import (
     Trainer, TrainerConfig)
 from handwritten_chinese_ocr_samples_torch.utils.weights import flax_to_torch
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 C, B, H = 12, 4, 32
 LR = {"SGD": 0.01, "Adam": 1e-3}
 LOSS_TOL, GRAD_TOL, PARAM_TOL, STAT_TOL = 1e-5, 1e-4, 1e-3, 1e-5

@@ -27,6 +27,7 @@ from handwritten_chinese_ocr_samples_torch.models.registry import (
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
     flax_to_torch, seeded_state_dict)
 from tests.torch_reference_layout import reference_state_dict
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HARD = os.path.join(REPO, "demo", "hard", "data")

@@ -28,6 +28,8 @@ from handwritten_chinese_ocr_samples_torch.decode.beam_device import (
 from handwritten_chinese_ocr_samples_torch.ops.decode import (
     greedy_decode_device)
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 UNK = 9            # 8-char vocabulary: blank 0, chars 1-8, unknown 9
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -62,6 +62,8 @@ from handwritten_chinese_ocr_samples_torch.train import trainer as trainer_mod
 from handwritten_chinese_ocr_samples_torch.train.step import global_norm
 from handwritten_chinese_ocr_samples_torch.utils.weights import flax_to_torch
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = {"sgd": 0.01, "adam": 1e-3}
 FIT = dict(batch_size=8, epochs=1, print_freq=1, val_freq=0, workers=2,

@@ -32,6 +32,8 @@ from handwritten_chinese_ocr_samples_torch.models.registry import (
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
     flax_to_torch, init_state_dict)
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 CLASSES, B, H = 37, 2, 64
 LOGIT_TOL, STAT_TOL = 1e-4, 1e-5
 NO_DROP = dict(stage_drop=(0.0,) * 4, block_drop=0.0, head_drop=0.0)

@@ -122,3 +122,40 @@ def test_native_build_raises_without_a_compiler(tmp_path):
                           env=dict(_env(), PATH=str(tmp_path)))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("raised")
+
+
+_PACKED = """
+import importlib.abc, sys
+REFUSED = {refused!r}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused: " + name)
+        return None
+
+sys.modules.update({{k: None for k in list(sys.modules)
+                     if k.split(".")[0] in REFUSED}})
+sys.meta_path.insert(0, Refuse())
+import torch
+from {port}.lm.io import load_lm
+model, state, tok = load_lm("{port}/assets/demo_full/lm")
+want = model.state_dict()
+assert sorted(state) == sorted(want)
+assert all(state[k].dtype == torch.float32
+           and state[k].shape == want[k].shape for k in want)
+model.load_state_dict(state)
+print("loaded", tok.vocab_size, model.config()["n_layers"])
+"""
+
+
+def test_packed_lm_loads_without_jax():
+    """The card's copy of the full-size LM (``assets/demo_full/lm``, its
+    weights packed by ``utils.weights.save_packed``) loads through
+    ``lm/io.load_lm`` with the JAX stack, OpenCV and PIL refused."""
+    code = _PACKED.format(refused=REFUSED, port=PORT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env=_env())
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-3:] == ["loaded", "7377", "6"]

@@ -249,3 +249,64 @@ def test_cached_lm_unported_options(small_lm):
     untied = CharTransformerLM(vocab_size=12, **SMALL, tie_embeddings=False)
     with pytest.raises(ValueError, match="tied"):
         CachedLM(untied, untied.state_dict())
+
+
+@pytest.mark.parametrize("suffix_len", [(4, 2), (0, 1)])
+def test_peek_logprobs_matches_jax(suffix_len):
+    """``CachedLM.peek_logprobs`` against the JAX method on the inputs of
+    the JAX package's ``test_peek_matches_full_scoring`` (V 20, d 32, two
+    layers, init key 0, prefix 4 and suffix 4 from seed 1), f32, within
+    1e-5; also with an empty suffix. The cache is left as it was."""
+    V, B, Lp, S = 20, 2, 4, 4
+    flax_model = FlaxLM(vocab_size=V, d_model=32, n_layers=2, n_heads=2,
+                        d_ff=64, max_len=64)
+    params = flax_model.init({"params": jax.random.key(0)},
+                             jnp.zeros((1, 8), jnp.int32),
+                             train=False)["params"]
+    model = CharTransformerLM(vocab_size=V, d_model=32, n_layers=2,
+                              n_heads=2, d_ff=64, max_len=64)
+    state = lm_flax_to_torch(jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, V, (B, Lp)).astype(np.int32)
+    suffix = rng.integers(0, V, (B, S)).astype(np.int32)
+    lens = np.asarray(suffix_len, np.int32)
+
+    jclm = JaxCachedLM(flax_model, params)
+    jcache = jclm.init_cache(B, 16)
+    clm = CachedLM(model, state, dtype=torch.float32)
+    cache = clm.init_cache(B, 16)
+    for t in range(Lp):
+        jl, jcache = jclm.step(jcache, jnp.asarray(prefix[:, t]))
+        tl, cache = clm.step(cache, torch.from_numpy(prefix[:, t]))
+    want = np.asarray(jclm.peek_logprobs(
+        jcache, jax.nn.log_softmax(jl, axis=-1), jnp.asarray(suffix),
+        jnp.asarray(lens)))
+    before = (cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+    got = clm.peek_logprobs(cache, torch.log_softmax(tl, dim=-1),
+                            torch.from_numpy(suffix), torch.from_numpy(lens))
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, (cache.k, cache.v, cache.lengths)))
+
+
+def test_load_lm_packed_directory(small_lm, tmp_path):
+    """An LM directory with the packed ``weights.pt.xz`` instead of
+    ``weights.pt`` loads the same state dict, in f32 from bf16 storage."""
+    from handwritten_chinese_ocr_samples_torch.utils.weights import (
+        save_packed)
+    _, _, small, small_state = small_lm
+    d = tmp_path / "lm"
+    d.mkdir()
+    Tokenizer.from_characters(CHARS).save_dict(str(d / "dict.txt"))
+    (d / "config.json").write_text(json.dumps(small.config()))
+    bf16 = {k: v.to(torch.bfloat16) for k, v in small_state.items()}
+    save_packed(bf16, str(d / "weights.pt.xz"), part_bytes=2048)
+    assert len(list(d.glob("weights.pt.xz.[0-9]*"))) > 1
+    model, state, _ = load_lm(str(d))
+    assert model.config() == small.config()
+    assert all(state[k].dtype == torch.float32
+               and torch.equal(state[k], bf16[k].float()) for k in bf16)
+    (d / "weights.pt.xz.1").unlink()
+    with pytest.raises(FileNotFoundError, match=r"weights\.pt\.xz\.1"):
+        load_lm(str(d))

@@ -207,3 +207,39 @@ def test_lm_overfits_tiny_corpus():
     nxt = scorer.next_k_words(["天地人"], k=1, char_based=True)
     assert nxt[0][:1] == ["你"]
     assert math.isfinite(ppl)
+
+
+def test_init_matches_flax_initialisers():
+    """The trainer's first weights (``utils.weights.init_lm_state_dict``)
+    against flax's init of the same LM, d 128, two layers: each tensor's
+    standard deviation within 5% of flax's (a few thousand draws or more
+    each: well inside), kernels truncated at two standard deviations of the
+    untruncated normal (largest |w| <= 2 sqrt(1/fan_in) / 0.8796, in both)
+    and the embeddings not (largest |w| over 3 of their std, in both);
+    biases 0 and LayerNorms at identity, as flax's."""
+    from handwritten_chinese_ocr_samples_torch.utils.weights import (
+        init_lm_state_dict)
+    cfg = dict(vocab_size=100, d_model=128, n_layers=2, n_heads=4,
+               d_ff=512, max_len=64)
+    flax_params = FlaxLM(**cfg).init(
+        {"params": jax.random.key(0)}, jnp.zeros((1, 8), jnp.int32),
+        train=False)["params"]
+    want = lm_flax_to_torch(jax.tree.map(np.asarray, flax_params))
+    got = init_lm_state_dict(dict(cfg, dropout=0.1, tie_embeddings=True),
+                             torch.Generator().manual_seed(0))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        assert g.shape == w.shape and g.dtype == torch.float32, key
+        if g.dim() == 1 or key.endswith("bias"):
+            assert torch.equal(g, w), key
+            continue
+        assert abs(g.std().item() / w.std().item() - 1) < 0.05, key
+        if key in ("embed.weight", "pos_embed"):
+            for t in (g, w):
+                assert t.abs().max().item() > 3 * t.std().item(), key
+        else:
+            cut = 2 * math.sqrt(1.0 / g.shape[1]) / 0.87962566103423978
+            for t in (g, w):
+                assert t.abs().max().item() <= cut * (1 + 1e-6), key
+            assert g.abs().max().item() > 0.95 * cut, key

@@ -40,6 +40,8 @@ from handwritten_chinese_ocr_samples_torch.serve.engine import (
     ServingEngine, _resize_area)
 from handwritten_chinese_ocr_samples_torch.utils.weights import flax_to_torch
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(REPO, "demo")
 CHARS = os.path.join(DEMO, "data", "chars_list.txt")
@@ -89,6 +91,42 @@ def test_engine_matches_jax(demo, method):
     assert all(want)                  # the trained demo reads every line
 
 
+def record_batches(log: list, dispatch):
+    """``dispatch`` (a batch's outputs -> ``finalize``) wrapped to append
+    ``("dispatch", k)`` when batch k is dispatched and ``("finalize", k)``
+    when its host tail runs."""
+    def wrapped(outputs):
+        k = sum(e[0] == "dispatch" for e in log)
+        log.append(("dispatch", k))
+        finalize = dispatch(outputs)
+
+        def recorded():
+            log.append(("finalize", k))
+            return finalize()
+        return recorded
+    return wrapped
+
+
+@pytest.mark.parametrize("method", ["greedy-search", "beam-search"])
+def test_batched_overlap_matches_jax(demo, method):
+    """One batch in flight: on both width buckets with a ragged last batch
+    (batches of 2, 3 and 1), the port's ``infer_files_batched`` serves the
+    JAX engine's texts, and both engines dispatch batch k+1 before they run
+    batch k's host tail."""
+    variables, files = demo
+    jax_engine = _jax_engine(variables, method)
+    want_log, got_log = [], []
+    jax_engine._decode_outputs_async = record_batches(
+        want_log, jax_engine._decode_outputs_async)
+    want, _ = jax_engine.infer_files_batched(files, batch_size=3)
+    engine = _port_engine(variables, method)
+    engine.route.dispatch = record_batches(got_log, engine.route.dispatch)
+    assert engine.infer_files_batched(files, batch_size=3)[0] == want
+    assert got_log == want_log == [
+        ("dispatch", 0), ("dispatch", 1), ("finalize", 0), ("dispatch", 2),
+        ("finalize", 1), ("finalize", 2)]
+
+
 @pytest.mark.parametrize("height", [96, 160])
 def test_resized_input_matches_jax(demo, height):
     """Lines not at model height are area-resized (numpy here, OpenCV in the
@@ -126,11 +164,10 @@ def test_resize_area_matches_opencv(shape, size):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-def test_unported_routes_raise(demo):
-    """The host-beam configurations, which raised until the host beam was
-    ported, now build it and serve the JAX engine's texts; so does int8,
-    which raised until int8 serving was ported: its engine calibrates on the
-    first batch and serves the JAX int8 engine's texts."""
+def test_host_beam_and_int8_engines_match_jax(demo):
+    """The host-beam configurations build the host beam and serve the JAX
+    engine's texts; int8 serving calibrates on the first batch and serves
+    the JAX int8 engine's texts."""
     variables, files = demo
     model, chars = get_model_info("hctr-tiny", chars_list_file=CHARS)
     sd = flax_to_torch(variables)

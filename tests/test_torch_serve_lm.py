@@ -48,6 +48,7 @@ from handwritten_chinese_ocr_samples_torch.utils.weights import (
     flax_to_torch, lm_flax_to_torch)
 
 from tests.test_torch_lm import one_torch_thread  # noqa: F401
+from tests.test_torch_serve import record_batches
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO = os.path.join(REPO, "demo")
@@ -136,11 +137,10 @@ def test_lm_knobs_reach_the_search(demo):
         torch.bfloat16
 
 
-def test_unported_lm_routes_raise(demo):
-    """The host-beam configurations, which raised until the host beam was
-    ported, now build it (LM proposals alone through the Python decoder and
-    ``LMScorer``, the others native) and serve the JAX engine's texts; so
-    does the int8 LM (``lm_int8``), which raised until it was ported: the
+def test_host_beam_and_int8_lm_engines_match_jax(demo):
+    """The host-beam configurations build the host beam (LM proposals alone
+    through the Python decoder and ``LMScorer``, the others native) and
+    serve the JAX engine's texts; so does the int8 LM (``lm_int8``): the
     search's ``CachedLM`` runs its step in int8 and the texts are the JAX
     int8-LM engine's, with the recognizer in int8 too."""
     variables, files, chars, jax_lm, lm_state = demo
@@ -261,6 +261,23 @@ def test_daemon_ss_route_matches_jax(demo, want_ss):
         futs = [daemon.submit(f) for f in demo[1]]
     assert [f.result(timeout=300) for f in futs] == want_ss
     assert engine._lm_beam.last_group == 2
+
+
+@pytest.mark.parametrize("route", ["lm", "ss"])
+def test_batched_overlap_matches_jax(demo, want, want_ss, route):
+    """One batch in flight on the LM routes (full search and ``-ss``): both
+    width buckets and a ragged last batch (the 128 bucket's third line, a
+    repeat, alone) serve the JAX engine's texts, and batch k+1 is
+    dispatched before batch k's search runs in ``finalize``."""
+    files = demo[1] + demo[1][1:2]
+    engine = _port_engine(demo, **(SS if route == "ss" else {}))
+    log = []
+    engine.route.dispatch = record_batches(log, engine.route.dispatch)
+    expected = want_ss if route == "ss" else want
+    assert engine.infer_files_batched(files, batch_size=2)[0] == \
+        expected + expected[1:2]
+    assert log == [("dispatch", 0), ("dispatch", 1), ("finalize", 0),
+                   ("dispatch", 2), ("finalize", 1), ("finalize", 2)]
 
 
 def test_ss_knobs_reach_the_search(demo):

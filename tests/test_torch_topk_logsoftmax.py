@@ -16,6 +16,8 @@ from handwritten_chinese_ocr_samples_tpu.ops.topk_logsoftmax import (
     topk_logsoftmax as jax_topk, topk_logsoftmax_xla)
 from handwritten_chinese_ocr_samples_torch.ops import topk_logsoftmax as k1
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 
 

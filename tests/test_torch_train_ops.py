@@ -31,6 +31,8 @@ from handwritten_chinese_ocr_samples_torch.ops.dropout import (
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
     init_state_dict)
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 CTC_TOL = 1e-5
 BN_TOL = 1e-5
 

@@ -48,6 +48,8 @@ from handwritten_chinese_ocr_samples_torch.ops.dropout import fold_in
 from handwritten_chinese_ocr_samples_torch.train import step as tstep
 from handwritten_chinese_ocr_samples_torch.utils.weights import flax_to_torch
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 C, B, W, L = 12, 4, 48, 5
 LR = {"SGD": 0.01, "Adam": 1e-3}
 LOSS_TOL, GRAD_TOL, PARAM_TOL, STAT_TOL = 1e-5, 1e-4, 1e-3, 1e-5
@@ -116,28 +118,39 @@ def _check_grads(got: dict, want: dict):
         assert err <= GRAD_TOL * scale, (name, err, scale)
 
 
+@pytest.fixture(scope="module")
+def jax_grads(init_vars):
+    """The JAX gradients on batch 0, with and without the width mask,
+    computed once for the cases of both port dtypes."""
+    batch = _batch(0)
+    fm = _flax_model()
+    out = {}
+    for mask in (False, True):
+        with jax.enable_x64(True):
+            pad = (jax_paddings(jnp.asarray(batch["widths"]), W) if mask
+                   else None)
+
+            def loss_fn(params):
+                logits, _ = fm.apply(
+                    {"params": params,
+                     "batch_stats": init_vars["batch_stats"]},
+                    jnp.asarray(batch["images"]), train=True,
+                    mutable=["batch_stats"])
+                return jax_ctc(logits, jnp.asarray(batch["labels"]),
+                               jnp.asarray(batch["label_paddings"]), pad)
+
+            grads = jax.jit(jax.grad(loss_fn))(init_vars["params"])
+        out[mask] = flax_to_torch({"params": jax.tree.map(np.asarray,
+                                                          grads)})
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mask", [False, True])
-def test_gradients_match_jax(init_vars, mask, dtype):
-    batch = _batch(0)
+def test_gradients_match_jax(init_vars, jax_grads, mask, dtype):
     model = _port_model(init_vars, dtype)
-    got = _port_grads(model, batch, mask)
-    fm = _flax_model()
-    with jax.enable_x64(True):
-        pad = (jax_paddings(jnp.asarray(batch["widths"]), W) if mask
-               else None)
-
-        def loss_fn(params):
-            logits, _ = fm.apply(
-                {"params": params, "batch_stats": init_vars["batch_stats"]},
-                jnp.asarray(batch["images"]), train=True,
-                mutable=["batch_stats"])
-            return jax_ctc(logits, jnp.asarray(batch["labels"]),
-                           jnp.asarray(batch["label_paddings"]), pad)
-
-        grads = jax.jit(jax.grad(loss_fn))(init_vars["params"])
-    want = flax_to_torch({"params": jax.tree.map(np.asarray, grads)})
-    _check_grads(got, want)
+    got = _port_grads(model, _batch(0), mask)
+    _check_grads(got, jax_grads[mask])
 
 
 def _sync_adam(state, jstate) -> None:

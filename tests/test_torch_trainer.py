@@ -51,6 +51,8 @@ from handwritten_chinese_ocr_samples_torch.train.trainer import (
     Trainer, TrainerConfig)
 from handwritten_chinese_ocr_samples_torch.utils.weights import flax_to_torch
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "handwritten_chinese_ocr_samples_torch",
                       "assets", "demo_hard")

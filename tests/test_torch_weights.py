@@ -26,6 +26,8 @@ from handwritten_chinese_ocr_samples_torch.models.registry import (
 from handwritten_chinese_ocr_samples_torch.utils.weights import (
     flax_to_torch, seeded_state_dict)
 
+from tests.test_torch_lm import one_torch_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEMO_CKPT = os.path.join(REPO, "demo", "checkpoint")
 DEMO_CHARS = os.path.join(REPO, "demo", "data", "chars_list.txt")

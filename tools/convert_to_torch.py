@@ -25,6 +25,28 @@ JAX package, and writes with the port's ``utils.weights`` into
     its command line. ``chip_smoke.py`` holds the card's texts against
     them.
 
+``--full`` converts the trained full-size ``demo/full`` artifact instead:
+``demo/full/checkpoint`` (the 38M ``hctr``) and ``demo/full/lm`` (the
+512d/6L char LM) into
+``handwritten_chinese_ocr_samples_torch/assets/demo_full/``:
+
+  * ``hctr.pt.xz``: the recognizer's state dict in the dtypes the checkpoint
+    stores (bf16), packed by the port's ``utils.weights.save_packed``
+    (``torch.save``, ``lzma``, parts ``hctr.pt.xz.0``, ``.1``, ... of at
+    most 48 MB, the manifest ``hctr.pt.xz.json``);
+  * ``lm/``: ``config.json``, ``dict.txt`` and ``weights.pt.xz`` packed the
+    same way;
+  * ``texts.json``: the JAX eval CLI's texts and CER (``cli/test.py -bm -b
+    25``, recognizer in bf16) for ``demo/full/RESULTS.md``'s two commands
+    (``FULL_EVAL_COMMANDS``), each with its command line, and under
+    ``engine_greedy`` and ``engine_ss`` the JAX ``ServingEngine``'s texts
+    at batch 8 on its width buckets (which pad a line otherwise than the
+    eval's batches do), bf16, greedy and the skip search at RESULTS.md's
+    lp and lb; every route on all 150 test lines.
+
+    env JAX_PLATFORMS=cpu python tools/convert_to_torch.py --full
+    env JAX_PLATFORMS=cpu python tools/convert_to_torch.py --full --skip-texts
+
 ``--int8`` writes ``int8.json`` alone, the int8 reference (``texts.json``
 is not regenerated: its ``-utp`` route takes about 10 minutes): the JAX
 ``ServingEngine``'s calibration tree on its first batch of 8 (recognizer in
@@ -86,13 +108,29 @@ INT8_EVAL_COMMANDS = {
     "lm_ss": EVAL_COMMANDS["lm_ss"] + ["--int8", "--lm-int8"],
 }
 
+FULL = os.path.join(REPO, "demo", "full")
+FULL_OUT = os.path.join(REPO, "handwritten_chinese_ocr_samples_torch",
+                        "assets", "demo_full")
+FULL_BATCH = 25
+# demo/full/RESULTS.md's two eval commands (tools/make_fullsize_demo.py:
+# 500-510 with its grid search's lp 0.8 and lb 4.0), after "-m hctr -f
+# <weights> -i demo/full/data -cl demo/full/data/chars_list.txt -bm -b 25"
+FULL_EVAL_COMMANDS = {
+    "greedy": ["-dm", "greedy-search"],
+    "lm_ss": ["-dm", "beam-search", "-utp", "-uts", "-ss", "-tp", "LM",
+              "-lp", "0.8", "-lb", "4.0"],
+}
+# the same routes through ServingEngine at this batch, its default buckets
+FULL_ENGINE_BATCH = 8
+
 
 def eval_argv(name: str, model_file: str, data: str, lm_dir: str,
               ngram: str = NGRAM, batch: int = EVAL_BATCH,
-              commands=EVAL_COMMANDS) -> list:
+              commands=EVAL_COMMANDS, model: str = "hctr-tiny",
+              extra=()) -> list:
     """The eval CLI's arguments of ``commands[name]``."""
     subst = {"LM": lm_dir, "NGRAM": ngram}
-    return (["-m", "hctr-tiny", "-f", model_file, "-i", data, "-bm", "-b",
+    return (["-m", model, "-f", model_file, "-i", data, *extra, "-bm", "-b",
              str(batch), "-tv", "-jw", "2"]
             + [subst.get(a, a) for a in commands[name]])
 
@@ -127,6 +165,146 @@ def convert(demo: str, out: str) -> None:
     for name in ("config.json", "dict.txt"):
         shutil.copy(os.path.join(demo, "lm", name),
                     os.path.join(out, "lm", name))
+
+
+def convert_full(demo: str = FULL, out: str = FULL_OUT) -> dict:
+    """The full-size recognizer and LM in their stored dtypes, packed as
+    the port reads them; returns each packed file's manifest."""
+    import jax
+    import numpy as np
+    import torch
+
+    from handwritten_chinese_ocr_samples_tpu.utils.ckpt_io import (
+        restore_pytree_host)
+    from handwritten_chinese_ocr_samples_torch.utils.weights import (
+        flax_to_torch, lm_flax_to_torch, save_packed)
+
+    def stored(convert, collection: str, tree) -> dict:
+        """``convert``'s f32 state dict of the orbax ``tree`` cast back to
+        the one dtype its leaves are stored in (bf16 -> f32 -> bf16 is
+        exact)."""
+        leaves = jax.tree.leaves(tree)
+        dtypes = {np.dtype(a.dtype).name for a in leaves}
+        if len(dtypes) != 1:
+            raise ValueError(f"{collection} mixes dtypes {sorted(dtypes)}")
+        dtype = getattr(torch, dtypes.pop())
+        state = convert({collection: jax.tree.map(np.asarray, tree)})
+        return {k: v.to(dtype) for k, v in state.items()}
+
+    os.makedirs(os.path.join(out, "lm"), exist_ok=True)
+    payload = restore_pytree_host(os.path.join(demo, "checkpoint"))
+    manifests = {"hctr": save_packed(
+        {**stored(flax_to_torch, "params", payload["params"]),
+         **stored(flax_to_torch, "batch_stats", payload["batch_stats"])},
+        os.path.join(out, "hctr.pt.xz"))}
+    lm_params = restore_pytree_host(
+        os.path.join(demo, "lm", "weights"))["params"]
+    manifests["lm"] = save_packed(
+        stored(lambda t: lm_flax_to_torch(t["params"]), "params", lm_params),
+        os.path.join(out, "lm", "weights.pt.xz"))
+    for name in ("config.json", "dict.txt"):
+        shutil.copy(os.path.join(demo, "lm", name),
+                    os.path.join(out, "lm", name))
+    return manifests
+
+
+def reference_eval_full(demo: str = FULL) -> dict:
+    """The JAX eval CLI's texts and CER for each of ``FULL_EVAL_COMMANDS``
+    on ``demo/full``'s test split, bf16, ``-b 25``."""
+    import contextlib
+    import io
+
+    from handwritten_chinese_ocr_samples_tpu.cli.test import build_argparser
+    from handwritten_chinese_ocr_samples_tpu.eval.driver import run_benchmark
+
+    data = os.path.join(demo, "data")
+    chars = os.path.join(data, "chars_list.txt")
+    shown = {"LM": "demo/full/lm"}
+    out = {}
+    for name in FULL_EVAL_COMMANDS:
+        argv = eval_argv(name, os.path.join(demo, "checkpoint"), data,
+                         os.path.join(demo, "lm"), batch=FULL_BATCH,
+                         commands=FULL_EVAL_COMMANDS, model="hctr",
+                         extra=("-cl", chars))
+        t0 = time.time()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_benchmark(build_argparser().parse_args(argv))
+        texts, cer = parse_eval_output(buf.getvalue())
+        seconds = time.time() - t0
+        out[name] = {
+            "command": " ".join(
+                ["-m hctr -f demo/full/checkpoint -i demo/full/data -cl "
+                 "demo/full/data/chars_list.txt -bm -b 25"]
+                + [shown.get(a, a) for a in FULL_EVAL_COMMANDS[name]]),
+            "lines": len(texts), "cer": cer, "texts": texts,
+            "cpu_seconds": round(seconds, 1)}
+        print(f"eval {name}: CER {cer}, {len(texts)} lines in "
+              f"{seconds:.1f} s", flush=True)
+    return out
+
+
+def reference_engine_full(demo: str = FULL) -> dict:
+    """The JAX ``ServingEngine``'s texts for ``demo/full``'s test split in
+    the split's order, recognizer and LM in bf16, batch 8 on the buckets
+    (512, 1024, 1600): greedy, and the skip search at RESULTS.md's lp 0.8
+    and lb 4.0."""
+    import jax.numpy as jnp
+
+    from handwritten_chinese_ocr_samples_tpu.core.codec import CTCCodec
+    from handwritten_chinese_ocr_samples_tpu.decode.lm_interface import (
+        build_lm_backend)
+    from handwritten_chinese_ocr_samples_tpu.eval.driver import (
+        load_recognizer_variables)
+    from handwritten_chinese_ocr_samples_tpu.models.registry import (
+        get_model_info)
+    from handwritten_chinese_ocr_samples_tpu.serve.engine import (
+        ServingEngine)
+
+    data = os.path.join(demo, "data")
+    paths = [os.path.join(data, "test", n) for n in manifest_files(data)]
+    model, characters = get_model_info("hctr", data_dir=data,
+                                       dtype=jnp.bfloat16)
+    codec = CTCCodec(characters)
+    variables = load_recognizer_variables(os.path.join(demo, "checkpoint"))
+    settings = {
+        "engine_greedy": dict(decode_method="greedy-search"),
+        "engine_ss": dict(
+            decode_method="beam-search", use_lm_pred=True,
+            use_lm_score=True, skip_search=True, lm_panelty=0.8,
+            len_bonus=4.0, lm=build_lm_backend(
+                tfm_path=os.path.join(demo, "lm"), use_tfm=True))}
+    out = {}
+    for name, kw in settings.items():
+        t0 = time.time()
+        engine = ServingEngine(model, variables, codec, **kw)
+        texts, _ = engine.infer_files_batched(paths,
+                                              batch_size=FULL_ENGINE_BATCH)
+        seconds = time.time() - t0
+        out[name] = {"texts": texts, "lines": len(texts),
+                     "batch": FULL_ENGINE_BATCH,
+                     "widths": list(engine.widths),
+                     "cpu_seconds": round(seconds, 1)}
+        print(f"{name}: {len(texts)} lines in {seconds:.1f} s", flush=True)
+    return out
+
+
+def manifest_files(data: str) -> list:
+    """The test split's file names in its manifest's order, the eval's
+    loader order."""
+    with open(os.path.join(data, "test_img_id_gt.txt"),
+              encoding="utf-8") as f:
+        return [row.split(",", 1)[0] for row in f if "," in row]
+
+
+def write_full_texts(demo: str, out: str) -> None:
+    """``texts.json`` of ``demo/full``: every eval and engine route on
+    every test line."""
+    texts = {"files": manifest_files(os.path.join(demo, "data")),
+             "batch": FULL_BATCH, "recognizer_dtype": "bfloat16",
+             **reference_eval_full(demo), **reference_engine_full(demo)}
+    with open(os.path.join(out, "texts.json"), "w", encoding="utf-8") as f:
+        json.dump(texts, f, ensure_ascii=False, indent=0)
 
 
 def reference_texts(demo: str, n_lines: int | None = None,
@@ -306,9 +484,21 @@ def main(argv=None) -> int:
                         help="convert the weights only")
     parser.add_argument("--int8", action="store_true",
                         help="write int8.json alone")
+    parser.add_argument("--full", action="store_true",
+                        help="convert demo/full into assets/demo_full")
     args = parser.parse_args(argv)
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if args.full:
+        t0 = time.time()
+        for name, m in convert_full(FULL, FULL_OUT).items():
+            print(f"{name}: {m['raw_bytes']} bytes -> "
+                  f"{[p['bytes'] for p in m['parts']]} "
+                  f"({time.time() - t0:.1f} s)", flush=True)
+        if not args.skip_texts:
+            write_full_texts(FULL, FULL_OUT)
+        print(f"wrote {FULL_OUT}")
+        return 0
     if args.int8:
         ref = reference_int8(args.demo)
         ref["eval"] = reference_eval(args.demo, commands=tuple(
