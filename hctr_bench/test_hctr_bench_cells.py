@@ -1,0 +1,209 @@
+"""The harness driven on the CPU at a size a test run holds: demo/hard's
+trained ``hctr-tiny`` (and its 128d/3L char LM) in f32 stands in for the
+cells' model, on 8 of its test lines. Each cell kind (closed greedy,
+closed skip search, open-loop daemon) runs end to end past the card
+check, and comes out incorrect with its timed path broken underneath: a
+token altered where it is produced, the LM-fused search's answer replaced
+by the greedy reading, answers swapped between requests, and the control
+(the program's int8 path; the reference on 4-bit integers).
+"""
+
+import json
+import os
+import shutil
+
+import pytest
+import torch
+
+import run as bench
+from manifest import Manifest
+
+ROOT = bench.ROOT
+ASSETS = "handwritten_chinese_ocr_samples_torch/assets/demo_hard"
+N_LINES = 8
+# numbers of a sound f32 run on the CPU lie at rounding; the broken runs'
+# at whole logits
+LIMITS = {"feat_err": {"limit": 0.002}, "token_gap": {"limit": 0.05},
+          "score_loss": {"limit": 0.05}}
+# the LM search may take a character whose logit lies a few below the best
+SS_TOKEN_GAP = {"limit": 3.0}
+
+
+def _config(tmp, int8=False, control=None):
+    with open(os.path.join(ROOT, ASSETS, "lm", "config.json")) as f:
+        lm_cfg = json.load(f)
+    cfg = {"name": "tiny", "model": "hctr-tiny", "channels": 64,
+           "blocks": [1, 1, 1, 1], "num_classes": 0, "img_height": 128,
+           "compute_dtype": "float32", "int8": int8,
+           "weights": f"{ASSETS}/hctr_tiny.pt",
+           "chars_list": "demo/hard/data/chars_list.txt",
+           "widths": [256, 512],
+           "lm": {"weights": f"{ASSETS}/lm/weights.pt",
+                  "dict": f"{ASSETS}/lm/dict.txt", "config": lm_cfg,
+                  "dtype": "float32", "lm_panelty": 0.8, "len_bonus": 0.0,
+                  "beam_size": 10, "search_depth": 10, "prune": 0.001,
+                  "lm_ctx": 0, "seg_budget": 0},
+           "calibration": {"folder": str(tmp / "lines"), "lines": 4,
+                           "width": 512},
+           "control": control or {"kind": "program"}}
+    cfg["num_classes"] = len(bench.assets.read_chars(cfg["chars_list"])) + 2
+    return cfg
+
+
+@pytest.fixture
+def tiny(tmp_path):
+    """A manifest of three tiny cells in ``tmp_path``."""
+    src = os.path.join(ROOT, "demo/hard/data/test")
+    os.makedirs(tmp_path / "lines")
+    names = sorted(os.listdir(src))[:N_LINES]
+    for n in names:
+        shutil.copy(os.path.join(src, n), tmp_path / "lines" / n)
+    labels = bench.assets.read_labels("demo/hard/data/test_img_id_gt.txt")
+    with open(tmp_path / "labels.txt", "w", encoding="utf-8") as f:
+        f.writelines(f"{n},{labels[n]}\n" for n in names)
+    common = {"lines": str(tmp_path / "lines"),
+              "labels": str(tmp_path / "labels.txt"), "warm_passes": 1,
+              "check_lines": 4}
+    traffic = {
+        "greedy": dict(common, kind="closed", route="greedy",
+                       rate_metric="lines_per_s", batch_size=4),
+        "ss": dict(common, kind="closed", route="ss",
+                   rate_metric="lm_lines_per_s", batch_size=4, lm_group=4),
+        "open": dict(common, kind="open", route="greedy", rate_per_s=20.0,
+                     batch_size=4, max_delay_ms=400)}
+    configs = {"tiny": _config(tmp_path),
+               "tiny-q": _config(tmp_path, int8=True, control={
+                   "kind": "reference", "quant_bits": 4})}
+    for d in ("traffic", "limits", "configs"):
+        os.makedirs(tmp_path / d)
+    for name, t in traffic.items():
+        (tmp_path / "traffic" / f"{name}.json").write_text(json.dumps(t))
+    for name, c in configs.items():
+        (tmp_path / "configs" / f"{name}.json").write_text(json.dumps(c))
+    cells = [("greedy", "tiny", "greedy"), ("ss", "tiny", "ss"),
+             ("open", "tiny", "open"), ("greedy-q", "tiny-q", "greedy")]
+    for cell, _, t in cells:
+        keep = ("feat_err", "token_gap") + (("score_loss",)
+                                            if t == "ss" else ())
+        limits = {k: LIMITS[k] for k in keep}
+        if t == "ss":
+            limits["token_gap"] = SS_TOKEN_GAP
+        (tmp_path / "limits" / f"{cell}.json").write_text(json.dumps(limits))
+    data = {"configs": [{"name": n, "file": str(tmp_path / "configs" /
+                                                 f"{n}.json")}
+                        for n in configs],
+            "workloads": [{"name": c, "config": cfg, "traffic": t,
+                           "chips": 1} for c, cfg, t in cells],
+            "end_to_end": [], "per_layer": []}
+    return Manifest(data, folder=str(tmp_path))
+
+
+def drive(manifest, cell_name, seed=5, seconds=0.5, control=False):
+    """A run past the card check on the CPU: set-up, window, sample, the
+    reference's judgement and ``correct``."""
+    cell = bench.Cell(manifest, cell_name, "cpu", control=control)
+    cell.setup()
+    out = cell.window(seed, seconds)
+    picked = cell.sample(out)
+    cell.free_program()
+    nums = cell.judge(picked)
+    ok, checks = bench.correct_of(nums, cell.limits)
+    return ok and out["failed"] == 0, nums, out
+
+
+def alter_first(chars, lengths):
+    """Each row's first character moved to the next class."""
+    chars = chars.clone()
+    chars[:, 0] = torch.where(lengths > 0, chars[:, 0] % 100 + 1,
+                              chars[:, 0])
+    return chars, lengths
+
+
+def test_greedy_sound_then_token_altered(tiny, monkeypatch):
+    ok, nums, out = drive(tiny, "greedy")
+    assert ok, nums
+    assert nums["lines_checked"] >= 4 and nums["feat_err"] < 1e-3
+    assert out["done"] % N_LINES == 0
+    from handwritten_chinese_ocr_samples_torch.decode import routes
+    real = routes.greedy_decode_device
+    monkeypatch.setattr(routes, "greedy_decode_device",
+                        lambda *a, **k: alter_first(*real(*a, **k)))
+    ok, nums, _ = drive(tiny, "greedy")
+    assert not ok and nums["token_gap"] > 1.0, nums
+
+
+def test_ss_sound_then_token_altered(tiny, monkeypatch):
+    ok, nums, _ = drive(tiny, "ss")
+    assert ok, nums
+    from handwritten_chinese_ocr_samples_torch.decode import adaptive
+    real = adaptive.AdaptiveLMBeam.decode
+    monkeypatch.setattr(adaptive.AdaptiveLMBeam, "decode",
+                        lambda self, *a: alter_first(*real(self, *a)))
+    ok, nums, _ = drive(tiny, "ss")
+    assert not ok and nums["token_gap"] > 3.0, nums
+    assert nums["score_loss"] > 1.0, nums
+
+
+def test_ss_greedy_in_place_of_the_search(tiny, monkeypatch):
+    """The search's answer replaced by the greedy reading (the LM dropped)
+    reads below the reference search's best, where the greedy collapse
+    alone stays within every logit limit."""
+    from handwritten_chinese_ocr_samples_torch.decode import adaptive, routes
+    monkeypatch.setattr(
+        adaptive.AdaptiveLMBeam, "decode",
+        lambda self, cv, ci, logits, *a: routes.greedy_decode_device(
+            logits, unknown_id=self.unknown_id))
+    ok, nums, _ = drive(tiny, "ss", seed=6)
+    assert not ok and nums["score_loss"] > LIMITS["score_loss"]["limit"], \
+        nums
+    assert nums["token_gap"] == 0.0 and nums["feat_err"] < 1e-3, nums
+
+
+def test_open_sound_then_answers_swapped(tiny, monkeypatch):
+    ok, nums, out = drive(tiny, "open", seconds=2.0)
+    assert ok, nums
+    assert out["attempted"] == 40 and out["failed"] == 0
+    assert max(out["fills"]) > 1
+    from handwritten_chinese_ocr_samples_torch.serve.engine import (
+        ServingEngine)
+    real = ServingEngine.infer_batch
+    monkeypatch.setattr(ServingEngine, "infer_batch",
+                        lambda self, b: real(self, b)[::-1])
+    ok, nums, _ = drive(tiny, "open", seconds=2.0)
+    assert not ok and nums["token_gap"] > 1.0, nums
+
+
+def test_controls_come_out_incorrect(tiny):
+    """The program's int8 path, and the reference on 4-bit integers, read
+    beyond the limits that sound f32 runs meet."""
+    ok, nums, _ = drive(tiny, "greedy", control=True)
+    assert not ok and nums["feat_err"] > LIMITS["feat_err"]["limit"], nums
+    cell = bench.Cell(tiny, "greedy-q", "cpu", control=True)
+    cell.state = bench.assets.load_state(cell.config["weights"])
+    nums = cell.control_reference(5, 0.5)
+    ok, _ = bench.correct_of(nums, cell.limits)
+    assert not ok and nums["feat_err"] > LIMITS["feat_err"]["limit"], nums
+
+
+@pytest.mark.card
+def test_cells_control_fails_on_card():
+    """On the card: each cell of BENCHMARK.json, its control on one seed at
+    the cell's own size, comes out incorrect against the committed
+    limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card")
+    manifest = Manifest.load()
+    for name in manifest.cells:
+        cell = bench.Cell(manifest, name, torch.device("cuda", 0),
+                          control=True)
+        if cell.config["control"]["kind"] == "reference":
+            cell.state = bench.assets.load_state(cell.config["weights"])
+            nums = cell.control_reference(11, 5.0)
+            ok, _ = bench.correct_of(nums, cell.limits)
+        else:
+            cell.setup()
+            out = cell.window(11, 5.0)
+            picked = cell.sample(out)
+            cell.free_program()
+            ok, _ = bench.correct_of(cell.judge(picked), cell.limits)
+        assert not ok, name
