@@ -25,7 +25,11 @@ flax_to_torch`` of a JAX checkpoint), a checkpoint of the port's trainer
 (``<model>_checkpoint``), a reference ``.pth``/``.pth.tar`` checkpoint
 (``compat/torch_convert.py``) or ``seed:<n>``; ``-d cpu`` runs on the
 CPU. ``--profile DIR`` writes a ``torch.profiler`` trace of the run (with
-``-gs``, of the first grid point) into DIR. ``-m innovation`` stops with an
+``-gs``, of the first grid point) into DIR, in which the program's spans
+(``utils/profiling``: ``route.dispatch``, ``route.finalize`` with
+``route.d2h_wait`` and ``route.texts``, the LM search's ``search.*``) name
+the host's layers; the spans are off unless ``--profile`` or
+``utils.profiling.enable`` turns them on. ``-m innovation`` stops with an
 error, as the JAX CLI fails on the classifier's ``(B, classes)`` logits:
 ``cli/train.py -m innovation --test`` evaluates it. ``-dp N`` shards each
 batch's rows over the first N cards from this one process (one weight
@@ -140,8 +144,9 @@ def build_argparser():
     args.add_argument("--host-beam", dest="host_beam", action="store_true",
                       help="force the host beam-search decoder")
     args.add_argument("--profile", default="", metavar="DIR",
-                      help="write a torch.profiler trace of the run into "
-                           "DIR (with -gs: first grid point only)")
+                      help="write a torch.profiler trace of the run, the "
+                           "program's spans named in it, into DIR (with "
+                           "-gs: first grid point only)")
     # hyper-param grid search (`test.py:92-105`)
     args.add_argument("-gs", "--grid-search", action="store_true",
                       help="grid search lm_panelty and len_bonus")

@@ -41,11 +41,17 @@ not divide raises.
 ``dense_merge`` picks the search's merge (``beam_lm_device``); None reads
 ``HCTR_LM_DENSE_MERGE`` (``1``: the dense merge; else the sort merge), as
 the JAX driver does.
+
+Spans (``utils/profiling``, off unless enabled): ``search.sizing`` (the
+sizing copy and ``_size``), ``search.decode`` an attempt (``attempt`` 0,
+then 1, 2, ... after each KV overflow) and in it ``search.overflow`` (the
+overflow flag's read).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
@@ -54,6 +60,7 @@ import torch
 
 from ..ops.topk_logsoftmax import PRUNE
 from ..parallel.mesh import canonical, on_shard, shard_rows
+from ..utils.profiling import span
 from .beam_lm_device import (count_peek_rows, make_count_sizing,
                              make_count_stats, make_lm_beam_search)
 
@@ -262,15 +269,17 @@ class AdaptiveLMBeam:
         the ``decode`` arguments of shard ``i``, every shard as many rows):
         sized as their whole batch, searched from one thread a shard.
         Returns each shard's ``(prefixes, lengths)``."""
-        maxima = [self._maxima(p[1], p[5]) for p in parts]
-        whole = [max(col) for col in zip(*maxima)]
-        if len(whole) > 4:                   # the ladder bound is a minimum
-            whole[4] = min(m[4] for m in maxima)
-        B, T = parts[0][0].shape[:2]
-        self._size(whole, int(T))
+        with span("search.sizing"):
+            maxima = [self._maxima(p[1], p[5]) for p in parts]
+            whole = [max(col) for col in zip(*maxima)]
+            if len(whole) > 4:               # the ladder bound is a minimum
+                whole[4] = min(m[4] for m in maxima)
+            B, T = parts[0][0].shape[:2]
+            self._size(whole, int(T))
         self.last_group = pick_group_size(B, self.group_size)
-        while True:
-            outs = self._map(self._search_shard, list(enumerate(parts)))
+        for attempt in itertools.count():
+            with span("search.decode", attempt=attempt):
+                outs = self._map(self._search_shard, list(enumerate(parts)))
             if not any(ovf for _, _, ovf in outs):
                 return [(p, l) for p, l, _ in outs]
             if self._ctx_pinned:
@@ -289,7 +298,8 @@ class AdaptiveLMBeam:
                  else contextlib.nullcontext())
         with shard, torch.inference_mode():
             prefixes, lengths, ovf = self.search(self.last_group, clm)(*args)
-            return prefixes, lengths, bool(ovf.any())
+            with span("search.overflow"):
+                return prefixes, lengths, bool(ovf.any())
 
     def _map(self, fn, items: list) -> list:
         """``fn`` over ``items``, one host thread each when there are

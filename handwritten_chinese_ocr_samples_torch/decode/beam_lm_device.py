@@ -41,6 +41,12 @@ reads one small summary of it a group.
 
 Two id spaces: CTC classes (blank 0, characters 1..N, unknown N+1) and LM
 tokens (specials 0..3, characters 4..); ``make_id_tables`` maps between them.
+
+Spans (``utils/profiling``, off unless enabled): ``search.group`` a group,
+and in the skip search ``search.schedule`` (the schedule's copy to the host
+and the list made from it) and ``search.segments`` (the whole segment
+loop). ``segment_steps`` counts the skip search's segment steps, a group's
+at a time.
 """
 
 from __future__ import annotations
@@ -55,8 +61,12 @@ import torch.nn.functional as F
 from ..lm.cached import CachedLM, LMCache
 from ..ops import logits_lse, peek_attention
 from ..ops.topk_logsoftmax import PRUNE
+from ..utils.profiling import span
 from .beam_device import (_DEAD, _DEAD_KEY, _H1_SEED, _H2_SEED, NEG_INF,
                           _end_steps, _hash_extend, _logaddexp, merge_rows)
+
+
+segment_steps = 0       # segment steps the skip search has run
 
 
 def make_id_tables(codec, tokenizer):
@@ -430,6 +440,7 @@ def make_lm_beam_search(
     earlier = row_ids[None, :] < row_ids[:, None]                # j < i
 
     def decode_group(cand_vals, cand_idx, logits, logz, blank_lp, n_above):
+        global segment_steps
         G, T, _ = cand_vals.shape
         L = T
         NB = G * BM
@@ -748,11 +759,13 @@ def make_lm_beam_search(
         cf_map, amb_map = segment_schedule(charfast, amb, budget, SB, RM)
         # one copy to the host a group: the slots used a segment, and which
         # segments hold anything
-        busy = torch.stack([(cf_map >= 0).sum(-1).amax(0),
-                            (amb_map >= 0).any(0).long()]).cpu()
-        slots = busy[0].tolist()
-        filled = [i for i in range(SB) if slots[i] or busy[1, i]]
-        n_seg = filled[-1] + 1 if filled else 0
+        with span("search.schedule"):
+            busy = torch.stack([(cf_map >= 0).sum(-1).amax(0),
+                                (amb_map >= 0).any(0).long()]).cpu()
+            slots = busy[0].tolist()
+            filled = [i for i in range(SB) if slots[i] or busy[1, i]]
+            n_seg = filled[-1] + 1 if filled else 0
+        segment_steps += n_seg
 
         def run_phase(st: LMBeamState, cf_t, n_slots: int):
             """Commit a run of char-fast frames ``cf_t (G, RM)`` (-1 = empty
@@ -843,29 +856,30 @@ def make_lm_beam_search(
                 lengths=(st.cache.lengths + n_flat).to(torch.int32))), None
 
         rung = 0
-        for s in range(n_seg):
-            if ladder is not None and rung < len(ladder) \
-                    and s == ladder[rung][0]:
-                # climb to the next rung: zero-pad the cache depth (every
-                # read masks by ``lengths``, so the pad rows stay dead)
-                nxt = (ladder[rung + 1][1] if rung + 1 < len(ladder)
-                       else lm_ctx)
-                grow = (0, 0, 0, 0, 0, nxt - ladder[rung][1])
-                state = state._replace(cache=state.cache._replace(
-                    k=F.pad(state.cache.k, grow),
-                    v=F.pad(state.cache.v, grow)))
-                rung += 1
-            run_kv = None
-            if slots[s]:
-                state, run_kv = run_phase(state, cf_map[:, s], slots[s])
-            amb_t = amb_map[:, s]
-            a_on = amb_t >= 0
-            ta = amb_t.clamp(min=0)
-            state = state._replace(pb=_logaddexp(
-                torch.where(a_on, preA[g1, ta], 0.0)[:, None] + state.pb,
-                torch.where(a_on, preB[g1, ta], NEG_INF)[:, None]
-                + state.pnb))
-            state = full_step(state, ta, a_on, s, run_kv)
+        with span("search.segments"):
+            for s in range(n_seg):
+                if ladder is not None and rung < len(ladder) \
+                        and s == ladder[rung][0]:
+                    # climb to the next rung: zero-pad the cache depth (every
+                    # read masks by ``lengths``, so the pad rows stay dead)
+                    nxt = (ladder[rung + 1][1] if rung + 1 < len(ladder)
+                           else lm_ctx)
+                    grow = (0, 0, 0, 0, 0, nxt - ladder[rung][1])
+                    state = state._replace(cache=state.cache._replace(
+                        k=F.pad(state.cache.k, grow),
+                        v=F.pad(state.cache.v, grow)))
+                    rung += 1
+                run_kv = None
+                if slots[s]:
+                    state, run_kv = run_phase(state, cf_map[:, s], slots[s])
+                amb_t = amb_map[:, s]
+                a_on = amb_t >= 0
+                ta = amb_t.clamp(min=0)
+                state = state._replace(pb=_logaddexp(
+                    torch.where(a_on, preA[g1, ta], 0.0)[:, None] + state.pb,
+                    torch.where(a_on, preB[g1, ta], NEG_INF)[:, None]
+                    + state.pnb))
+                state = full_step(state, ta, a_on, s, run_kv)
         if n_seg < SB:
             # the JAX program's remaining segments are no-ops at frame 0
             state = state._replace(ovf=idle_peek_overflow(
@@ -886,12 +900,14 @@ def make_lm_beam_search(
         G = max(1, min(group_size, B))
         if B % G != 0:
             raise ValueError(f"batch {B} not divisible by group {G}")
-        outs = [decode_group(
-            cand_vals[s:s + G], cand_idx[s:s + G], logits[s:s + G],
-            logz[s:s + G],
-            None if blank_lp is None else blank_lp[s:s + G],
-            None if n_above is None else n_above[s:s + G])
-            for s in range(0, B, G)]
+        outs = []
+        for s in range(0, B, G):
+            with span("search.group"):
+                outs.append(decode_group(
+                    cand_vals[s:s + G], cand_idx[s:s + G], logits[s:s + G],
+                    logz[s:s + G],
+                    None if blank_lp is None else blank_lp[s:s + G],
+                    None if n_above is None else n_above[s:s + G]))
         prefixes, lengths, ovf = (torch.cat(x) for x in zip(*outs))
         return (prefixes, lengths, ovf) if return_overflow else (prefixes,
                                                                  lengths)

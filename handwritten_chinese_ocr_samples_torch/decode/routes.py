@@ -28,6 +28,11 @@ An LM that is neither scored nor proposing is ignored. The D2H goes to
 pinned memory behind an event (``to_host``), so that work queued after a
 dispatch does not hold it back.
 
+Spans (``utils/profiling``, off unless enabled): ``route.dispatch`` around
+the queueing, ``route.finalize`` around the host tail, and in it
+``route.d2h_wait`` (the wait on ``to_host``'s event) and ``route.texts``
+(the index rows to strings).
+
 ``dispatch_shards`` decodes a batch's row shards (``-dp``), each shard's
 logits on its own device: the ``lm`` route through ``AdaptiveLMBeam``'s
 shards (built with ``shards=``), the others shard by shard, with each
@@ -45,6 +50,7 @@ import torch
 from ..ops import topk_logsoftmax as _k1
 from ..ops.decode import greedy_decode_device
 from ..parallel.mesh import on_shard
+from ..utils.profiling import span
 from .beam_device import beam_search_fused, dense_merge_default
 
 
@@ -63,7 +69,8 @@ def to_host(*tensors: torch.Tensor) -> Callable[[], List[np.ndarray]]:
     done.record()
 
     def wait():
-        done.synchronize()
+        with span("route.d2h_wait"):
+            done.synchronize()
         return [h.numpy() for h in hosts]
     return wait
 
@@ -97,6 +104,15 @@ class DecodeRoute:
     def dispatch(self, logits: torch.Tensor) -> Callable[[], List[str]]:
         """Queue the device work of a ``(B, T, D)`` logits batch; returns
         ``finalize() -> B texts``."""
+        with span("route.dispatch"):
+            finalize = self._queue(logits)
+
+        def traced_finalize():
+            with span("route.finalize"):
+                return finalize()
+        return traced_finalize
+
+    def _queue(self, logits: torch.Tensor) -> Callable[[], List[str]]:
         codec = self.codec
         if self.name == "lm":
             cv, ci, blank_lp, n_above = self.lm_inputs(logits)
@@ -106,8 +122,9 @@ class DecodeRoute:
                 with torch.inference_mode():
                     chars, lengths = self.lm_beam.decode(
                         cv, ci, logits, logz, blank_lp, n_above)
-                return codec.compact_to_texts(chars.cpu().numpy(),
-                                              lengths.cpu().numpy())
+                with span("route.texts"):
+                    return codec.compact_to_texts(chars.cpu().numpy(),
+                                                  lengths.cpu().numpy())
             return finalize
         if self.name == "host":
             wait_logp = to_host(torch.log_softmax(logits.float(), dim=-1))
@@ -130,7 +147,8 @@ class DecodeRoute:
 
         def finalize():
             chars, lengths = wait()
-            return codec.compact_to_texts(chars, lengths)
+            with span("route.texts"):
+                return codec.compact_to_texts(chars, lengths)
         return finalize
 
     def lm_inputs(self, logits: torch.Tensor):

@@ -8,10 +8,16 @@ and equal what ``ServingEngine.infer_files`` returns for the same image.
 
 Threading model: callers preprocess on their own thread (``submit``), and a
 single dispatcher thread owns the device.
+
+Spans (``utils/profiling``, off unless enabled): ``daemon.queue`` per
+request, ``daemon.flush`` per flush with the reason it fell due and when,
+``daemon.wait`` while the dispatcher waits. The deadlines run on
+``time.monotonic()``; the spans' clock is read only while spans are kept.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
@@ -20,6 +26,8 @@ from typing import Deque, Dict, List, Tuple
 
 import numpy as np
 
+from ..utils import profiling
+from ..utils.profiling import span
 from .engine import ServingEngine
 
 
@@ -41,6 +49,11 @@ class ServingDaemon:
         self._queues: Dict[int, Deque[Tuple[float, np.ndarray, Future]]] = {}
         self._closing = False
         self._drain = True
+        # while spans are kept: future -> (request id, enqueue time on the
+        # spans' clock, the submitting thread); and the close's time
+        self._traced: Dict[Future, Tuple[int, int, str]] = {}
+        self._requests = itertools.count()
+        self._close_ns = 0
         self._thread = threading.Thread(target=self._serve_loop,
                                         name="hctr-serving", daemon=True)
         self._thread.start()
@@ -58,6 +71,8 @@ class ServingDaemon:
         """Stop the dispatcher; ``drain=True`` serves queued requests
         first, else they are cancelled."""
         with self._lock:
+            if profiling.recording():
+                self._close_ns = profiling.now_ns()
             self._closing = True
             self._drain = drain
             self._lock.notify()
@@ -72,11 +87,17 @@ class ServingDaemon:
     # ----------------------------------------------------------- internals
     def _enqueue(self, w: int, x: np.ndarray) -> "Future[str]":
         fut: Future = Future()
+        # read before the deadline's clock, so that a flush that is due on
+        # the one is due on the other
+        t_ns = profiling.now_ns() if profiling.recording() else 0
         with self._lock:
             if self._closing:
                 raise RuntimeError("daemon is shut down")
             self._queues.setdefault(w, deque()).append(
                 (time.monotonic(), x, fut))
+            if t_ns:
+                self._traced[fut] = (next(self._requests), t_ns,
+                                     threading.current_thread().name)
             self._lock.notify()
         return fut
 
@@ -109,6 +130,9 @@ class ServingDaemon:
                         q = self._queues[w]
                         n = min(len(q), self.batch_size)
                         items = [q.popleft() for _ in range(n)]
+                        traced = ([self._traced.pop(fut, None)
+                                   for _, _, fut in items]
+                                  if self._traced else [])
                         break
                     if self._closing:
                         pending = [(w, it) for w, q in self._queues.items()
@@ -118,6 +142,7 @@ class ServingDaemon:
                         if not self._drain:
                             for _, (_, _, fut) in pending:
                                 fut.cancel()
+                            self._traced.clear()
                             return
                         if not pending:
                             return
@@ -127,8 +152,36 @@ class ServingDaemon:
                         continue
                     timeout = (None if oldest is None
                                else max(0.0, self.max_delay - (now - oldest)))
-                    self._lock.wait(timeout=timeout)
-            self._dispatch(items)
+                    with span("daemon.wait"):
+                        self._lock.wait(timeout=timeout)
+            with self._flush_span(w, items, traced, now):
+                self._dispatch(items)
+
+    def _flush_span(self, w: int, items, traced: list, now: float):
+        """The ``daemon.flush`` span of ``items``, popped from bucket ``w``
+        at ``now``, and the ``daemon.queue`` span of each request
+        (``traced``: their ``_traced`` entries, or empty)."""
+        if not profiling.recording():
+            return span("daemon.flush")
+        popped = profiling.now_ns()
+        for req in traced:
+            if req is not None:
+                profiling.record("daemon.queue", req[1], popped, req[2],
+                                 request=req[0], bucket=w)
+        head = items[0][0]
+        if head == float("-inf"):
+            reason, due = "drain", self._close_ns
+        elif now - head >= self.max_delay:
+            # the head's deadline
+            reason = "deadline"
+            due = (traced[0][1] + round(self.max_delay * 1e9)
+                   if traced and traced[0] else None)
+        else:
+            # the request that filled the batch
+            reason = "full"
+            due = traced[-1][1] if traced and traced[-1] else None
+        return span("daemon.flush", reason=reason, rows=len(items), bucket=w,
+                    due_ns=due, requests=[r[0] for r in traced if r])
 
     def _dispatch(self, items: List[Tuple[float, np.ndarray, Future]]) -> None:
         pad = self.batch_size - len(items)

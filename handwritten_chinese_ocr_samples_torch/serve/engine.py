@@ -11,10 +11,15 @@ height (area interpolation), fixed width — truncate on the right if wider,
 else pad with white then replicate the right edge — and normalise
 ``(x - 127.5) / 127.5``. Image files are decoded with OpenCV, imported only
 when a file is read; array input needs no image library.
+
+Spans (``utils/profiling``, off unless enabled): ``engine.dispatch`` a
+batch, over the input's copy to the device (``engine.h2d``), the model
+call (``engine.forward``) and the route's device work (``route.dispatch``).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..decode.routes import build_route
+from ..utils.profiling import span
 from . import quant
 
 
@@ -152,6 +158,7 @@ class ServingEngine:
         self._lm_beam = self.route.lm_beam
         self._host_beam = self.route.host
         self._prune_lp = self.route.prune_lp
+        self._batches = itertools.count()
 
     def bucket_for(self, width: int) -> int:
         for w in self.widths:
@@ -179,11 +186,16 @@ class ServingEngine:
         """Queue the forward and the decode's device work of a ``(b, H, W,
         1)`` uint8 batch; returns ``finalize() -> one text per row``, the
         host tail (D2H, the LM search's host loop, strings)."""
-        x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        x = (x.float() - 127.5) / 127.5
-        if self._int8 and self._quant is None:
-            self._quant = quant.calibrate_for_model(self.model, [x])
-        return self.route.dispatch(self.model(x))
+        with span("engine.dispatch", batch=next(self._batches)):
+            with span("engine.h2d"):
+                x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(
+                    self.device)
+            x = (x.float() - 127.5) / 127.5
+            if self._int8 and self._quant is None:
+                self._quant = quant.calibrate_for_model(self.model, [x])
+            with span("engine.forward"):
+                y = self.model(x)
+            return self.route.dispatch(y)
 
     def infer_batch(self, batch_u8: np.ndarray) -> List[str]:
         """``(b, H, W, 1)`` uint8 batch -> one text per row."""
