@@ -9,6 +9,7 @@
     python3 chip_smoke.py --classify
     python3 chip_smoke.py --dist
     python3 chip_smoke.py --demo-full
+    python3 chip_smoke.py --ss-graphs
 
 Builds the port's CUDA kernels from ``handwritten_chinese_ocr_samples_torch/
 csrc`` with nvcc, holds each kernel against its plain PyTorch version on the
@@ -38,6 +39,12 @@ with ``--int8`` (within ``INT8_EVAL_CER_TOL`` of bf16), and
 budget, ms a segment step, idle share, memory) and the full search on the
 8 widest lines against the plain versions' decode (ms a frame, the deepest
 LM context). ``--demo-full`` runs only the build and this phase.
+
+``ss_graphs``: the same artifact at the ``bf16-ss-b32`` cell's sizing (b32,
+one search group a batch): the skip search's segment steps replayed from
+CUDA graphs against its eager loop on the same logits (hit share,
+captures, texts equal, wall and device ms a segment step each way, peak
+memory). ``--ss-graphs`` runs only the build and this phase.
 
 int8 serving (kernel I1, ``csrc/int8_conv.cu``: the quantize and the s8 x s8
 -> s32 implicit-GEMM conv entry points; the conv on a TMA-fed ``wgmma``
@@ -327,6 +334,7 @@ FULL_EVAL_COMMANDS = {
 FULL_SS_CER_MARGIN = 0.002
 FULL_SERVE_BATCH = 8           # ServingEngine's batch on the width buckets
 FULL_SEARCH_LINES = 8          # the full search: one batch of the widest
+SS_GRAPH_BATCH = 32            # ss_graphs: the bf16-ss-b32 cell's batch
 FULL_PROFILED_FRAMES = 128     # its wall and device time over a batch's
                                # first frames
 PARSER_TOL = 1e-6              # of the busy ms: raw events vs key_averages
@@ -1561,6 +1569,9 @@ def record_first(wanted: dict, optional=()):
 
     def recorder(base, fn):
         def rec(*args, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                # recorded into a CUDA graph, not launched: nothing to keep
+                return fn(*args, **kw)
             for key, pred in wanted.items():
                 if key.split("@")[0] == base and key not in kept \
                         and pred(args):
@@ -2613,6 +2624,145 @@ def phase_demo_full(dev) -> dict:
         check(ok, what)
     return {"eval_ss": eval_counts, "serve_ss": counts,
             "full_search": full_counts, "int8": q["i1_launches"]}
+
+
+@contextlib.contextmanager
+def eager_segment_steps():
+    """The skip search's eager loop on the card (fresh tensors a step, no
+    CUDA graph), as the CPU and an ``on_select`` hook run it."""
+    saved = blm._use_static_steps
+    blm._use_static_steps = lambda dev, on_select: False
+    try:
+        yield
+    finally:
+        blm._use_static_steps = saved
+
+
+def graph_counts() -> dict:
+    return {"segment_steps": blm.segment_steps,
+            "replays": blm.segment_graph_replays,
+            "captures": blm.segment_graph_captures,
+            "gather_write_kv": k4.launches}
+
+
+def phase_ss_graphs(dev) -> dict:
+    """demo/full's trained ``hctr`` and 512d/6L LM (bf16) on its 150 test
+    lines at the ``bf16-ss-b32`` cell's sizing (``SS_GRAPH_BATCH`` lines a
+    batch by width bucket and one search group a batch, lp 0.8, lb 4.0,
+    beam 10, K 10, auto context and budget): the skip search's segment
+    steps replayed from CUDA graphs against its eager loop, on the same
+    logits. Every batch is decoded three times: first (the first group of
+    each shape runs the eager loop, each later one captures the step keys
+    its shapes have taken, before its first step; the captures' seconds
+    from their ``search.capture`` spans), again (replayed: the hit share,
+    no capture, and the ladder's climbs between replayed steps), and on
+    the eager loop; the texts must be equal. Then the widest batch,
+    replayed and eager, unprofiled (wall ms a segment step) and under a
+    card-only profile (device ms a segment step, launches)."""
+    from handwritten_chinese_ocr_samples_torch.utils import profiling
+    state = normalize_serving_dtype(load_packed(f"{FULL_ASSETS}/hctr.pt.xz"))
+    codec = CTCCodec(load_chars_list(f"{DEMO_FULL}/chars_list.txt"))
+    model, _ = get_model_info(DEMO_FULL_MODEL, dtype=torch.bfloat16,
+                              chars_list_file=f"{DEMO_FULL}/chars_list.txt")
+    lm = TorchLMBackend(*load_lm(f"{FULL_ASSETS}/lm"))
+    engine = full_engine(model, state, codec, dev, lm, skip_search=True,
+                         lm_group=SS_GRAPH_BATCH)
+    with open(os.path.join(FULL_ASSETS, "texts.json"), encoding="utf-8") as f:
+        files = json.load(f)["files"]
+    items = [engine.preprocess_bucketed(os.path.join(DEMO_FULL, "test", n))
+             for n in files]
+    batches = bucket_logits(engine, items, SS_GRAPH_BATCH)
+
+    def decode(which):
+        torch.cuda.synchronize()
+        before = graph_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            texts = [engine.decode_logits(lg)[:len(chunk)]
+                     for chunk, lg in which]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = graph_counts()
+        return texts, wall, {k: after[k] - before[k] for k in after}
+
+    profiling.enable()
+    texts1, wall1, first = decode(batches)
+    captures = [s for s in profiling.collect() if s.name == "search.capture"]
+    profiling.enable(False)
+    mib = 2 ** 20
+    held_mib = torch.cuda.memory_allocated(dev) / mib
+    torch.cuda.reset_peak_memory_stats(dev)
+    climbs = []
+    climb = blm.StepStore.climb
+    blm.StepStore.climb = lambda self, Lc: (climbs.append(Lc),
+                                            climb(self, Lc))
+    try:
+        texts2, wall2, second = decode(batches)
+    finally:
+        blm.StepStore.climb = climb
+    peak_mib = torch.cuda.max_memory_allocated(dev) / mib
+    torch.cuda.reset_peak_memory_stats(dev)
+    with eager_segment_steps():
+        texts3, wall3, eager = decode(batches)
+    eager_peak_mib = torch.cuda.max_memory_allocated(dev) / mib
+    stores = engine._lm_beam._clm.segment_graphs
+    widest = [max(batches, key=lambda b: b[1].shape[1])]
+    batch = {}
+    for name, ctx in (("replayed", contextlib.nullcontext),
+                      ("eager", eager_segment_steps)):
+        with ctx():
+            _, wall, c = decode(widest)
+            busy_ms, own, n_launch, top, _ = profile_decode(engine,
+                                                            widest[0][1])
+        steps = c["segment_steps"]
+        batch[name] = {
+            "lines": len(widest[0][0]), "frames": int(widest[0][1].shape[1]),
+            "segment_steps": steps, "replays": c["replays"],
+            "wall_ms_per_segment_step": wall * 1e3 / steps,
+            "device_ms_per_segment_step": (busy_ms / steps if busy_ms > 0
+                                           else "not measured"),
+            "device_idle_share": (1 - busy_ms / (wall * 1e3) if busy_ms > 0
+                                  else "not measured"),
+            "kernel_launches_per_segment_step": n_launch / steps,
+            "own_kernels_ms": own, "top_kernels": top}
+    out = {"phase": "ss_graphs", "model": DEMO_FULL_MODEL, "lm": "512d/6L",
+           "compute_dtype": "bfloat16", "lines": len(files),
+           "batch": SS_GRAPH_BATCH, "lm_batches": len(batches),
+           "frames": sorted({int(lg.shape[1]) for _, lg in batches}),
+           "first": {**first, "wall_s": wall1, "capture_s": sum(
+               (s.end_ns - s.start_ns) / 1e9 for s in captures)},
+           "replayed": {**second, "wall_s": wall2,
+                        "hit_share": second["replays"]
+                        / max(second["segment_steps"], 1)},
+           "eager": {**eager, "wall_s": wall3},
+           "replayed_over_eager_wall": wall2 / wall3,
+           "step_keys": sum(len(s.graphs) for s in stores.values()),
+           "depths_captured": sorted({key[2] for s in stores.values()
+                                      for key in s.graphs}),
+           "climbs_replayed": {str(d): climbs.count(d)
+                               for d in sorted(set(climbs))},
+           "peak_mem_mib_replayed": peak_mib,
+           "peak_mem_mib_eager": eager_peak_mib,
+           "mem_mib_held_after_first": held_mib,
+           "mem_mib_reserved": torch.cuda.memory_reserved(dev) / mib,
+           "lines_differing_replayed_eager": sum(
+               a != b for x, y in zip(texts2, texts3) for a, b in zip(x, y)),
+           "lines_differing_first_replayed": sum(
+               a != b for x, y in zip(texts1, texts2) for a, b in zip(x, y)),
+           "widest_batch": batch}
+    emit(out)
+    check(second["captures"] == 0 and second["replays"]
+          == second["segment_steps"] > 0,
+          f"ss_graphs: a second decode captured or ran eagerly: {second}")
+    check(eager["replays"] == eager["captures"] == 0,
+          f"ss_graphs: the eager loop replayed: {eager}")
+    for c in (first, second, eager):
+        check(c["gather_write_kv"] == c["segment_steps"],
+              f"ss_graphs: K4 launches vs segment steps: {c}")
+    check(texts1 == texts2 == texts3,
+          f"ss_graphs: replayed and eager texts differ on "
+          f"{out['lines_differing_replayed_eager']} lines")
+    return out
 
 
 def png_width(path: str) -> int:
@@ -5611,6 +5761,9 @@ def smoke() -> int:
     if "--demo-full" in sys.argv[1:]:  # the trained demo/full artifact
         phase_demo_full(dev)
         return 0
+    if "--ss-graphs" in sys.argv[1:]:  # -ss replayed from CUDA graphs
+        phase_ss_graphs(dev)
+        return 0
     if "--kernels" in sys.argv[1:]:  # K1-K4 and I1 alone, times first
         times = k1_times(dev)
         emit({"phase": "k1_times", **times})
@@ -5641,6 +5794,7 @@ def smoke() -> int:
     paths["demo_full_eval_ss"] = full["eval_ss"]
     paths["demo_full_serve_ss"] = full["serve_ss"]
     int8_paths["demo_full_int8"] = full["int8"]
+    phase_ss_graphs(dev)
     int8_paths.update(phase_export(dev, codec, state))
     phase_train_parity(dev)
     train = phase_train_full(dev)

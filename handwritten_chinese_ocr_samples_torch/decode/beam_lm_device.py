@@ -42,16 +42,26 @@ reads one small summary of it a group.
 Two id spaces: CTC classes (blank 0, characters 1..N, unknown N+1) and LM
 tokens (specials 0..3, characters 4..); ``make_id_tables`` maps between them.
 
+On a card, and where no ``on_select`` hook watches the steps, the skip
+search runs its segment steps over static buffers and replays them from
+CUDA graphs (``StepStore``): one graph launch a step in place of the ~1600
+kernels the host would launch one at a time. The first group of new shapes,
+the CPU and the hook run the same step eagerly on fresh tensors.
+
 Spans (``utils/profiling``, off unless enabled): ``search.group`` a group,
 and in the skip search ``search.schedule`` (the schedule's copy to the host
-and the list made from it) and ``search.segments`` (the whole segment
-loop). ``segment_steps`` counts the skip search's segment steps, a group's
-at a time.
+and the list made from it), ``search.segments`` (the whole segment loop)
+and ``search.capture`` (``key``: a step's capture into a CUDA graph,
+before the loop).
+``segment_steps`` counts the skip search's segment steps, a group's at a
+time; ``segment_graph_replays`` those replayed from a graph and
+``segment_graph_captures`` the graphs captured.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -59,14 +69,18 @@ import torch
 import torch.nn.functional as F
 
 from ..lm.cached import CachedLM, LMCache
-from ..ops import logits_lse, peek_attention
+from ..ops import cache_gather, logits_lse, peek_attention
+from ..ops.launch_tally import tallying
 from ..ops.topk_logsoftmax import PRUNE
+from ..parallel.mesh import current_shard
 from ..utils.profiling import span
 from .beam_device import (_DEAD, _DEAD_KEY, _H1_SEED, _H2_SEED, NEG_INF,
                           _end_steps, _hash_extend, _logaddexp, merge_rows)
 
 
-segment_steps = 0       # segment steps the skip search has run
+segment_steps = 0           # segment steps the skip search has run
+segment_graph_replays = 0   # of those, replayed from a CUDA graph
+segment_graph_captures = 0  # segment steps captured into CUDA graphs
 
 
 def make_id_tables(codec, tokenizer):
@@ -342,6 +356,242 @@ def _frame_classes(arg, n_above, end, unknown_id: int, blank_id: int):
             ~fast & in_range)
 
 
+# ------------------------------------------------- static segment steps
+# the modules of the kernels a segment step launches: K2, K3, K4
+_KERNELS = (peek_attention, logits_lse, cache_gather)
+
+
+def _kernel_fns() -> tuple:
+    """The wrappers a step reaches K2-K4 through: a step captured with
+    other wrappers (their plain versions swapped in) is another graph."""
+    return (peek_attention.peek_cache_attention, logits_lse.lse_rows,
+            cache_gather.gather_write_kv)
+
+
+def _use_static_steps(dev: torch.device, on_select) -> bool:
+    """Whether the skip search steps its segments over a ``StepStore``'s
+    static buffers: on a card, where no ``on_select`` hook watches the
+    steps."""
+    return dev.type == "cuda" and on_select is None
+
+
+def _capture(body, pool, stream):
+    """A CUDA graph of ``body``'s work, captured on ``stream`` into the
+    memory pool ``pool``; nothing runs. ``thread_local``: a data shard's
+    thread may capture while another one launches. Without a pool (the
+    CPU) there is nothing to capture: the stand-in runs ``body`` at each
+    replay."""
+    if pool is None:
+        return SimpleNamespace(replay=body)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(stream.device):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+    return graph
+
+
+class StepStore:
+    """The skip search's segment step over static buffers, and the CUDA
+    graphs captured of it, for one LM replica on one data shard (kept in
+    ``CachedLM.segment_graphs`` under ``parallel.mesh.current_shard()``).
+
+    A group's search signature and shapes make its family. The first group
+    of a family runs the eager loop on its own tensors (K2 and K3 set their
+    kernels' attributes at their first launch) and leaves here only the
+    keys of the steps it took: the cache depth ``Lc`` of the rung, the
+    run's slots and the parity. From the family's next group on, ``load``
+    copies the group's inputs into buffers of their shapes and its initial
+    state into the state buffers of parity 0, and ``capture`` records each
+    step key the family has taken, or this group will take, that has no
+    graph yet into a CUDA graph in the store's one memory pool: every step
+    of such a group replays a graph. A step reads parity p and writes
+    parity 1 - p, K4 straight into that parity's KV cache, then advances
+    ``seg``, the device scalar that picks the segment, so the host writes
+    nothing a step. A replay adds to K2-K4's launch counters what its
+    capture tallied (``ops/launch_tally``). Each parity's KV cache is a
+    view, at depth ``Lc``, of one flat storage sized for the LM's context
+    (grow-only in the beams); ``climb`` (a ladder rung, once a group)
+    copies the state to the other parity, zero-padding the cache. No
+    tensor that a graph allocates outlives its capture, so the graphs may
+    replay in any order.
+
+    So a family seen once (the eval CLI pads each batch to its widest line)
+    allocates and captures nothing; the buffers and graphs of the
+    ``SHAPES`` shapes loaded last are kept. On the CPU a step's stand-in
+    for a graph runs it eagerly."""
+
+    SHAPES = 4      # the engine's width buckets, and one more
+    SEEN = 64       # families whose step keys are kept
+
+    def __init__(self, clm: CachedLM):
+        self.dev = clm.device
+        self.kv_dims = (clm.n_layers, clm.n_heads, clm.d_head)
+        self.dtype = clm.dtype
+        self.max_len = int(clm.model.max_len)
+        cuda = self.dev.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.stream = torch.cuda.Stream(self.dev) if cuda else None
+        self.consts = {}    # search signature -> its constant tensors
+        self.keys = {}      # family -> its step keys, least recent first
+        self.shapes = {}    # shapes -> (inputs, states), least recent first
+        self.kv = []        # each parity's flat (k, v) storage
+        self.kv_size = 0
+        self.graphs = {}    # family + step key -> (graph, K2-K4 launches)
+        self.seg = self._alloc((1,), torch.long)
+
+    @staticmethod
+    def of(clm: CachedLM) -> "StepStore":
+        """The store of ``clm`` for the calling thread's data shard."""
+        shard = current_shard()
+        if shard not in clm.segment_graphs:
+            clm.segment_graphs[shard] = StepStore(clm)
+        return clm.segment_graphs[shard]
+
+    def _alloc(self, shape, dtype) -> torch.Tensor:
+        # normal tensors, so that steps outside inference mode update them
+        with torch.inference_mode(False):
+            return torch.zeros(shape, dtype=dtype, device=self.dev)
+
+    def _like(self, tensors: dict) -> dict:
+        return {n: self._alloc(t.shape, t.dtype) for n, t in tensors.items()}
+
+    @staticmethod
+    def _fields(st: LMBeamState) -> dict:
+        """The state's tensors but the cache's k/v."""
+        out = st._asdict()
+        out["cache_lengths"] = out.pop("cache").lengths
+        return out
+
+    def state(self, p: int, Lc: int | None = None) -> LMBeamState:
+        """The static search state of parity ``p`` (its cache at depth
+        ``Lc``, by default the current rung's)."""
+        layers, H, Dh = self.kv_dims
+        shape = (layers, self.NB, self.Lc if Lc is None else Lc, H, Dh)
+        n = math.prod(shape)
+        f = dict(self.st[p])
+        lengths = f.pop("cache_lengths")
+        k, v = self.kv[p]
+        return LMBeamState(**f, cache=LMCache(k[:n].view(shape),
+                                              v[:n].view(shape), lengths))
+
+    def _write(self, p: int, st: LMBeamState) -> None:
+        for n, t in self._fields(st).items():
+            self.st[p][n].copy_(t)
+
+    def load(self, sig, inputs: dict, state: LMBeamState, depth: int,
+             plan) -> dict | None:
+        """A group of the search of signature ``sig``: its ``inputs``, its
+        initial ``state``, the depth its cache may deepen to and its
+        ``plan``, each step's (cache depth, run slots). None where the
+        family is new: the caller steps the group eagerly on its own
+        tensors. Else the group is copied in (the state at parity 0,
+        ``seg`` at 0) and the static inputs are returned, for the steps to
+        read in place of the given ones."""
+        layers, NB, Lc, H, Dh = state.cache.k.shape
+        fields = self._fields(state)
+        shape = tuple((n, tuple(t.shape), t.dtype)
+                      for d in (inputs, fields) for n, t in d.items())
+        family = (sig, shape)
+        keys, d, p = set(), Lc, 0
+        for d_s, slots in plan:
+            if d_s != d:            # a climb moves the state across
+                d, p = d_s, 1 - p
+            keys.add((d, slots, p))
+            p = 1 - p
+        seen = self.keys.pop(family, None)
+        self.keys[family] = keys | (seen or set())
+        if len(self.keys) > self.SEEN:
+            del self.keys[next(iter(self.keys))]
+        if seen is None:
+            return None
+        size = layers * NB * max(self.max_len, depth, Lc) * H * Dh
+        if size > self.kv_size:
+            self.graphs.clear()          # they read the storage they had
+            self.kv = []                 # freed before the larger one
+            self.kv = [(self._alloc((size,), self.dtype),
+                        self._alloc((size,), self.dtype)) for _ in range(2)]
+            self.kv_size = size
+        bufs = (self.shapes.pop(shape) if shape in self.shapes else
+                (self._like(inputs), [self._like(fields) for _ in "01"]))
+        self.shapes[shape] = bufs
+        if len(self.shapes) > self.SHAPES:
+            old = next(iter(self.shapes))
+            del self.shapes[old]
+            for key in [k for k in self.graphs if k[1] == old]:
+                del self.graphs[key]
+        self.sin, self.st = bufs
+        for n, t in inputs.items():
+            self.sin[n].copy_(t)
+        self.NB, self.Lc, self.p = NB, Lc, 0
+        self._write(0, state)
+        dst = self.state(0).cache
+        dst.k.copy_(state.cache.k)
+        dst.v.copy_(state.cache.v)
+        self.seg.zero_()
+        self.family = family
+        self.label = (f"G{self.sin['cf_map'].shape[0]} "
+                      f"T{self.sin['cand_idx'].shape[1]} "
+                      f"SB{self.sin['cf_map'].shape[1]}")
+        return self.sin
+
+    def capture(self, segment_step) -> None:
+        """Capture each step key of the loaded family that has no graph
+        yet. ``segment_step(st, cf_t, amb_t, n_slots, step, out)`` steps
+        the group, reading the static inputs ``load`` returned."""
+        global segment_graph_captures
+        for key in sorted(self.keys[self.family]):
+            if self.family + key in self.graphs:
+                continue
+            Lc, n_slots, p = key
+            sin, seg, new = self.sin, self.seg, self.st[1 - p]
+            src, dst = self.state(p, Lc), self.state(1 - p, Lc)
+
+            def body(src=src, dst=dst, new=new, n_slots=n_slots):
+                cf_t = sin["cf_map"].index_select(1, seg)[:, 0]
+                amb_t = sin["amb_map"].index_select(1, seg)[:, 0]
+                st = segment_step(src, cf_t, amb_t, n_slots, None, dst.cache)
+                for n, t in self._fields(st).items():
+                    new[n].copy_(t)
+                seg.add_(1)
+            with span("search.capture", key=f"{self.label} Lc{Lc} "
+                                            f"slots{n_slots} p{p}"), \
+                    tallying() as tally:
+                graph = _capture(body, self.pool, self.stream)
+            self.graphs[self.family + key] = (graph, tuple(
+                tally.get(mod.__name__, 0) for mod in _KERNELS))
+            segment_graph_captures += 1
+
+    def climb(self, Lc: int) -> None:
+        """Deepen the cache to ``Lc``: the state moves to the other
+        parity, the cache zero-padded (every read masks by its lengths)."""
+        src = self.state(self.p)
+        self.p, self.Lc = 1 - self.p, Lc
+        dst = self.state(self.p)
+        self._write(self.p, src)
+        lo = src.cache.k.shape[2]
+        for a, b in ((dst.cache.k, src.cache.k), (dst.cache.v, src.cache.v)):
+            a[:, :, :lo].copy_(b)
+            a[:, :, lo:].zero_()
+
+    def step(self, n_slots: int) -> LMBeamState:
+        """One segment step of ``n_slots`` run slots, replayed from its
+        graph; returns the new state."""
+        global segment_graph_replays
+        graph, launched = self.graphs[self.family
+                                      + (self.Lc, n_slots, self.p)]
+        graph.replay()
+        for mod, n in zip(_KERNELS, launched):
+            mod.launches += n
+        segment_graph_replays += 1
+        self.p = 1 - self.p
+        return self.state(self.p)
+
+
 def make_lm_beam_search(
     clm: CachedLM,
     codec2lm: np.ndarray,
@@ -438,6 +688,18 @@ def make_lm_beam_search(
     row_ids = torch.arange(n_rows, dtype=torch.int32, device=dev)
     full_slots = 1 + torch.arange(C, device=dev).repeat(BM)      # (BM*C,)
     earlier = row_ids[None, :] < row_ids[:, None]                # j < i
+    # static segment steps: the constants live as long as the store's
+    # graphs, which read them
+    store = sig = None
+    if skip_search and _use_static_steps(dev, on_select):
+        store = StepStore.of(clm)
+        sig = (BM, K, M, P, S, RM, unknown_id, blank_id, float(prune),
+               float(lm_panelty), float(len_bonus), bool(fused_commit),
+               bool(dense_merge), np.asarray(codec2lm).tobytes(),
+               np.asarray(lm2codec).tobytes(), _kernel_fns())
+        c2l, l2c, bi, row_parent, row_ids, full_slots, earlier = \
+            store.consts.setdefault(sig, (c2l, l2c, bi, row_parent, row_ids,
+                                          full_slots, earlier))
 
     def decode_group(cand_vals, cand_idx, logits, logz, blank_lp, n_above):
         global segment_steps
@@ -519,12 +781,14 @@ def make_lm_beam_search(
             """Candidates the peek must score: not blank, not unknown."""
             return (idx != blank_id) & (idx < unknown_id)
 
-        def full_step(st: LMBeamState, t, active, step, run_kv=None):
+        def full_step(st: LMBeamState, t, active, step, run_kv=None,
+                      out=None):
             """One searched frame per line, ``t (G,)``, for the lines where
             ``active (G,)``; the others pass through unchanged.
             ``run_kv=(ek, ev, en)`` (fused commit): the preceding run's k/v
             not yet in the cache, attended by the peek and written by this
-            step's reorder."""
+            step's reorder. ``out``: a cache whose k/v receive the
+            reordered cache (the static steps)."""
             act = active[:, None]                                   # (G, 1)
             vis_idx, vis_p = visual(t)
             vis_idx = vis_idx[:, None].expand(G, BM, K)
@@ -677,7 +941,8 @@ def make_lm_beam_search(
                 wpos = torch.where(do_g, glen, Lc).to(torch.int32)
                 new_cache = CachedLM.gather_write(
                     st.cache, reorder_g.to(torch.int32), k_sel, v_sel,
-                    wpos)._replace(lengths=torch.where(do_g, glen + 1, glen))
+                    wpos, out=out)._replace(
+                        lengths=torch.where(do_g, glen + 1, glen))
             else:
                 # fused commit, plain: one pass merges the reorder, the new
                 # parent's deferred run tokens at lengths..lengths+n-1 and
@@ -695,9 +960,11 @@ def make_lm_beam_search(
                 run_m = run_any[None, :, :, None, None]
                 new_cache = LMCache(
                     k=torch.where(ext_m, k_sel[:, :, None],
-                                  torch.where(run_m, k_run, perm.k)),
+                                  torch.where(run_m, k_run, perm.k),
+                                  out=None if out is None else out.k),
                     v=torch.where(ext_m, v_sel[:, :, None],
-                                  torch.where(run_m, v_run, perm.v)),
+                                  torch.where(run_m, v_run, perm.v),
+                                  out=None if out is None else out.v),
                     lengths=torch.where(do_g, glen + 1, glen).to(torch.int32))
             new_next_logp = torch.where(
                 do_g[:, None], peek_logp0[sel_g, slot_g],
@@ -855,31 +1122,62 @@ def make_lm_beam_search(
                 v=torch.where(m_any, vr, st.cache.v),
                 lengths=(st.cache.lengths + n_flat).to(torch.int32))), None
 
-        rung = 0
+        def segment_step(st: LMBeamState, cf_t, amb_t, n_slots: int, step,
+                         out=None):
+            """One segment step: the run of ``cf_t (G, RM)`` over its first
+            ``n_slots`` slots (none: no run phase), the blank fold before
+            the closing ambiguous frame ``amb_t (G,)`` (-1 = none) and its
+            search step. ``out``: as ``full_step``'s."""
+            run_kv = None
+            if n_slots:
+                st, run_kv = run_phase(st, cf_t, n_slots)
+            a_on = amb_t >= 0
+            ta = amb_t.clamp(min=0)
+            st = st._replace(pb=_logaddexp(
+                torch.where(a_on, preA[g1, ta], 0.0)[:, None] + st.pb,
+                torch.where(a_on, preB[g1, ta], NEG_INF)[:, None] + st.pnb))
+            return full_step(st, ta, a_on, step, run_kv, out)
+
+        # each step's cache depth: a ladder's rungs, then the full context
+        depths = [lm_ctx] * n_seg
+        if ladder is not None:
+            rung_ctx = [c for _, c in ladder] + [lm_ctx]
+            depths = [rung_ctx[sum(s >= k for k, _ in ladder)]
+                      for s in range(n_seg)]
+        static = None
+        if store is not None:
+            static = store.load(sig, dict(
+                cand_vals=cand_vals, cand_idx=cand_idx, logits=logits,
+                logz=logz, blank_lp=blank_lp, preA=preA, preB=preB,
+                suffix_codec=suffix_codec, suffix_valid=suffix_valid,
+                gi=gi, g1=g1, cf_map=cf_map, amb_map=amb_map), state, lm_ctx,
+                list(zip(depths, slots)))
+        if static is not None:
+            # the steps read the group's tensors from the static buffers
+            (cand_vals, cand_idx, logits, logz, blank_lp, preA, preB,
+             suffix_codec, suffix_valid, gi, g1) = (static[n] for n in (
+                 "cand_vals", "cand_idx", "logits", "logz", "blank_lp",
+                 "preA", "preB", "suffix_codec", "suffix_valid", "gi", "g1"))
+            store.capture(segment_step)
         with span("search.segments"):
+            Lc = state.cache.k.shape[2]
             for s in range(n_seg):
-                if ladder is not None and rung < len(ladder) \
-                        and s == ladder[rung][0]:
+                if depths[s] != Lc:
                     # climb to the next rung: zero-pad the cache depth (every
                     # read masks by ``lengths``, so the pad rows stay dead)
-                    nxt = (ladder[rung + 1][1] if rung + 1 < len(ladder)
-                           else lm_ctx)
-                    grow = (0, 0, 0, 0, 0, nxt - ladder[rung][1])
-                    state = state._replace(cache=state.cache._replace(
-                        k=F.pad(state.cache.k, grow),
-                        v=F.pad(state.cache.v, grow)))
-                    rung += 1
-                run_kv = None
-                if slots[s]:
-                    state, run_kv = run_phase(state, cf_map[:, s], slots[s])
-                amb_t = amb_map[:, s]
-                a_on = amb_t >= 0
-                ta = amb_t.clamp(min=0)
-                state = state._replace(pb=_logaddexp(
-                    torch.where(a_on, preA[g1, ta], 0.0)[:, None] + state.pb,
-                    torch.where(a_on, preB[g1, ta], NEG_INF)[:, None]
-                    + state.pnb))
-                state = full_step(state, ta, a_on, s, run_kv)
+                    if static is not None:
+                        store.climb(depths[s])
+                    else:
+                        grow = (0, 0, 0, 0, 0, depths[s] - Lc)
+                        state = state._replace(cache=state.cache._replace(
+                            k=F.pad(state.cache.k, grow),
+                            v=F.pad(state.cache.v, grow)))
+                    Lc = depths[s]
+                if static is not None:
+                    state = store.step(slots[s])
+                else:
+                    state = segment_step(state, cf_map[:, s], amb_map[:, s],
+                                         slots[s], s)
         if n_seg < SB:
             # the JAX program's remaining segments are no-ops at frame 0
             state = state._replace(ovf=idle_peek_overflow(
@@ -887,7 +1185,8 @@ def make_lm_beam_search(
         # (the JAX program folds the blank frames after the last kept frame
         # into pb here; no output reads it)
         return (state.prefixes[:, 0].to(torch.int32),
-                state.lengths[:, 0].to(torch.int32), state.ovf)
+                state.lengths[:, 0].to(torch.int32),
+                state.ovf if static is None else state.ovf.clone())
 
     def run(cand_vals, cand_idx, logits, logz, blank_lp=None, n_above=None):
         B = cand_vals.shape[0]

@@ -84,6 +84,10 @@ class CachedLM:
                 "ff2_b": w(p + "ff2.bias"),
             })
         self.device = self.emb.device
+        # the skip search's segment steps over static buffers, and their
+        # CUDA graphs, one store a data shard
+        # (``decode/beam_lm_device.StepStore``)
+        self.segment_graphs = {}
         # int8 step (``quant_int8``): FF1, FF2 and the tied logits run
         # s8 x s8 -> s32 (kernel I1 on the card) with static per-out-channel
         # weight scales from the compute-dtype weights and a dynamic
@@ -123,6 +127,7 @@ class CachedLM:
         for name in ("emb", "emb32", "pos", "ln_f", "layers", "_wq"):
             setattr(new, name, to(getattr(self, name)))
         new.device = device
+        new.segment_graphs = {}
         return new
 
     def init_cache(self, B: int, max_len: int) -> LMCache:
@@ -142,13 +147,16 @@ class CachedLM:
 
     @staticmethod
     def gather_write(cache: LMCache, idx: torch.Tensor, k_new: torch.Tensor,
-                     v_new: torch.Tensor, wpos: torch.Tensor) -> LMCache:
+                     v_new: torch.Tensor, wpos: torch.Tensor,
+                     out: Optional[LMCache] = None) -> LMCache:
         """Beam reorder and one-token-per-row write (kernel K4 on the card):
         ``new.k[l, p, t] = k_new[l, p] if t == wpos[p] else
         cache.k[l, idx[p], t]``; ``wpos[p] >= Lmax`` writes nothing. Lengths
-        are reordered, not advanced: the caller owns them."""
-        k, v = cache_gather.gather_write_kv(cache.k, cache.v, idx, k_new,
-                                            v_new, wpos)
+        are reordered, not advanced: the caller owns them. ``out``: a
+        cache whose k/v receive the result (its lengths are not touched)."""
+        args = (cache.k, cache.v, idx, k_new, v_new, wpos)
+        k, v = (cache_gather.gather_write_kv(*args) if out is None else
+                cache_gather.gather_write_kv(*args, out=(out.k, out.v)))
         return LMCache(k=k, v=v, lengths=cache.lengths[idx.long()])
 
     # ------------------------------------------------------------- layers

@@ -19,7 +19,10 @@ import ctypes
 
 import torch
 
-# Launches of the CUDA kernel in this process (the plain version adds none).
+from .launch_tally import counted
+
+# Launches of the CUDA kernel in this process (the plain version adds none;
+# a launch into a CUDA graph being captured counts at each replay).
 launches = 0
 
 
@@ -32,25 +35,30 @@ def _kernel():
     return fn
 
 
-def gather_write_kv_plain(cache_k, cache_v, idx, k_new, v_new, wpos):
+def gather_write_kv_plain(cache_k, cache_v, idx, k_new, v_new, wpos,
+                          out=None):
     """Plain PyTorch version: ``out[l, p, t] = new[l, p] if t == wpos[p]
     else cache[l, idx[p], t]`` for k and v; ``wpos[p] >= L`` writes
-    nothing."""
+    nothing. ``out=(k, v)``: as ``gather_write_kv``'s."""
     L = cache_k.shape[2]
     hit = (torch.arange(L, device=wpos.device)[None, :]
            == wpos[:, None])[None, :, :, None, None]
     idx = idx.long()
-    k = torch.where(hit, k_new.to(cache_k.dtype)[:, :, None], cache_k[:, idx])
-    v = torch.where(hit, v_new.to(cache_v.dtype)[:, :, None], cache_v[:, idx])
+    ok, ov = (None, None) if out is None else out
+    k = torch.where(hit, k_new.to(cache_k.dtype)[:, :, None], cache_k[:, idx],
+                    out=ok)
+    v = torch.where(hit, v_new.to(cache_v.dtype)[:, :, None], cache_v[:, idx],
+                    out=ov)
     return k, v
 
 
-def gather_write_kv(cache_k, cache_v, idx, k_new, v_new, wpos):
+def gather_write_kv(cache_k, cache_v, idx, k_new, v_new, wpos, out=None):
     """``cache_k/v (layers, B, L, H, Dh)``; ``idx/wpos (B,)`` int32;
     ``k/v_new (layers, B, H, Dh)`` indexed by the NEW beam position.
-    Returns the new ``(k, v)``; lengths stay with the caller. A CUDA tensor
-    goes through the kernel (or raises), a CPU tensor through the plain
-    version."""
+    Returns the new ``(k, v)``, written into ``out=(k, v)`` when given
+    (contiguous, of the caches' shape and dtype, sharing no memory with
+    them); lengths stay with the caller. A CUDA tensor goes through the
+    kernel (or raises), a CPU tensor through the plain version."""
     if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
         raise ValueError(f"expected (layers, B, L, H, Dh) caches, got "
                          f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)}")
@@ -59,9 +67,15 @@ def gather_write_kv(cache_k, cache_v, idx, k_new, v_new, wpos):
             or idx.shape != (B,) or wpos.shape != (B,)):
         raise ValueError("k_new/v_new must be (layers, B, H, Dh) and "
                          "idx/wpos (B,)")
+    if out is not None and any(
+            o.shape != cache_k.shape or o.dtype != cache_k.dtype
+            or o.device != cache_k.device or not o.is_contiguous()
+            for o in out):
+        raise ValueError("out must be two contiguous tensors of the caches' "
+                         "shape, dtype and device")
     if cache_k.device.type == "cpu":
         return gather_write_kv_plain(cache_k, cache_v, idx, k_new, v_new,
-                                     wpos)
+                                     wpos, out)
     if cache_k.device.type != "cuda":
         raise ValueError(f"unsupported device {cache_k.device}")
     tensors = (cache_k, cache_v, k_new, v_new)
@@ -75,8 +89,8 @@ def gather_write_kv(cache_k, cache_v, idx, k_new, v_new, wpos):
     if row_bytes % 16 or any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"rows of {row_bytes} bytes: the kernel moves "
                          f"16-byte vectors and needs 16-byte aligned rows")
-    ok = torch.empty_like(cache_k)
-    ov = torch.empty_like(cache_v)
+    ok, ov = ((torch.empty_like(cache_k), torch.empty_like(cache_v))
+              if out is None else out)
     if ok.numel() == 0:
         return ok, ov
     kernel = _kernel()
@@ -91,5 +105,6 @@ def gather_write_kv(cache_k, cache_v, idx, k_new, v_new, wpos):
         raise RuntimeError(f"gather_write_kv kernel launch failed: "
                            f"cudaError {rc}")
     global launches
-    launches += 1
+    if counted(__name__):
+        launches += 1
     return ok, ov

@@ -22,7 +22,10 @@ import ctypes
 
 import torch
 
-# Launches of the CUDA kernel in this process (the plain version adds none).
+from .launch_tally import counted
+
+# Launches of the CUDA kernel in this process (the plain version adds none;
+# a launch into a CUDA graph being captured counts at each replay).
 launches = 0
 
 # csrc/lse_rows.cu: the tensor-core path (bf16) takes 128 rows x 256
@@ -120,7 +123,8 @@ def lse_rows(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
                            + ("no TMA descriptor" if rc == -1
                               else f"cudaError {rc}"))
     global launches
-    launches += 1
+    if counted(__name__):
+        launches += 1
     return out
 
 

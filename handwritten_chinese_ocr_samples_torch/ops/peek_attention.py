@@ -22,9 +22,12 @@ import ctypes
 
 import torch
 
+from .launch_tally import counted
+
 NEG = -1e30
 
-# Launches of the CUDA kernel in this process (the plain version adds none).
+# Launches of the CUDA kernel in this process (the plain version adds none;
+# a launch into a CUDA graph being captured counts at each replay).
 launches = 0
 
 _MAX_DH = 128    # csrc/peek_attention.cu S_MAX_DH
@@ -101,7 +104,8 @@ def peek_cache_attention(q, k_cache, v_cache, lengths):
         raise RuntimeError(f"peek_cache_attention kernel launch failed: "
                            f"cudaError {rc}")
     global launches
-    launches += 1
+    if counted(__name__):
+        launches += 1
     return o, m, lsum
 
 

@@ -21,8 +21,9 @@ boundary, never a kernel launch or a search step:
     ``route.texts``: ``serve/engine.py``, ``decode/routes.py``;
   * ``search.sizing``, ``search.decode`` (``attempt``: 1 after a KV
     overflow) over ``search.group`` (``search.schedule``,
-    ``search.segments``) and ``search.overflow``: ``decode/adaptive.py``,
-    ``decode/beam_lm_device.py``.
+    ``search.segments``, ``search.capture``: a segment step's capture into
+    a CUDA graph, ``key``) and ``search.overflow``:
+    ``decode/adaptive.py``, ``decode/beam_lm_device.py``.
 
 They are off unless enabled: ``span`` then checks one module flag and
 returns a shared no-op, with no clock read and nothing kept. ``enable()``

@@ -10,11 +10,16 @@ compaction's scan sums in the JAX scan's tree order, and its values are held
 to 1e-5; the schedule is integer and held exactly.
 """
 
+import copy
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from handwritten_chinese_ocr_samples_tpu.decode import adaptive as jad
 from handwritten_chinese_ocr_samples_tpu.decode import beam_lm_device as jbl
@@ -27,9 +32,15 @@ from handwritten_chinese_ocr_samples_tpu.utils.posteriors import (
     synth_peaky_logits as jax_synth)
 from handwritten_chinese_ocr_samples_torch.decode import adaptive as ad
 from handwritten_chinese_ocr_samples_torch.decode import beam_lm_device as bl
-from handwritten_chinese_ocr_samples_torch.lm.cached import LMCache
+from handwritten_chinese_ocr_samples_torch.lm.cached import (
+    CachedLM, LMCache)
+from handwritten_chinese_ocr_samples_torch.ops import (
+    cache_gather, launch_tally, logits_lse, peek_attention)
+from handwritten_chinese_ocr_samples_torch.utils import profiling
 from handwritten_chinese_ocr_samples_torch.utils.posteriors import (
     synth_peaky_logits)
+from handwritten_chinese_ocr_samples_torch.utils.weights import (
+    lm_flax_to_torch)
 
 from tests.test_adaptive_lm import _soft_preds
 from tests.test_beam_skip_device import _peaky_preds
@@ -490,3 +501,368 @@ def test_adaptive_skip_pinned_errors(setup):
         ad.AdaptiveLMBeam(clm, c2l, l2c, seg_budget=1, **kw).decode(*targs)
     with pytest.raises(ValueError, match="ctx_ladder"):
         ad.AdaptiveLMBeam(clm, c2l, l2c, ctx_ladder=-1, **kw)
+
+
+# ------------------------------------------------- static segment steps
+def _block_line(sizes, seed=0):
+    """One line whose kept frames come in blocks: ``n`` confident
+    characters (blanks between some), then an ambiguous frame, for each
+    ``n`` of ``sizes``, so that its segments use ``n`` run slots each.
+    ``(T, 1, D)``."""
+    rng = np.random.default_rng(seed)
+    D = len(CHARS) + 2
+    frames = []
+    for n in sizes:
+        for _ in range(n):
+            frames.append(("char", int(rng.integers(1, D - 1))))
+            if rng.random() < 0.5:
+                frames.append(("blank", 0))
+        frames.append(("blank", 0))
+        frames.append(("amb", rng.choice(np.arange(1, D - 1), 2,
+                                         replace=False)))
+        frames.append(("blank", 0))
+    frames += [("blank", 0)] * 6
+    logits = rng.normal(size=(len(frames), 1, D)) * 0.2
+    for t, (kind, ids) in enumerate(frames):
+        logits[t, 0, 0 if kind == "blank" else ids] += 12.0
+    return logits.astype(np.float32)
+
+
+def _static_steps(monkeypatch):
+    """The CPU takes the card's path: segment steps over a ``StepStore``'s
+    static buffers, each "replayed" by a stand-in that runs it eagerly."""
+    monkeypatch.setattr(bl, "_use_static_steps",
+                        lambda dev, on_select: on_select is None)
+
+
+RM = 8                  # the default run_max: slot counts 0..RM
+SLOT_SIZES = [3, 0, 8, 1, 5, 2, 7, 0, 4, 6, 11]
+STATIC_CASES = {
+    "slots": dict(lines=[SLOT_SIZES], kw={}),
+    "slots_use_pred_off": dict(lines=[SLOT_SIZES], kw=dict(
+        use_lm_pred=False)),
+    "grouped": dict(lines=[SLOT_SIZES, SLOT_SIZES[::-1]], kw=dict(
+        group_size=2)),
+    "ladder": dict(lines=[SLOT_SIZES], kw=dict(ctx_ladder=(4, 24))),
+    "ladder_two_rungs": dict(lines=[SLOT_SIZES], kw=dict(
+        ctx_ladder=[(2, 16), (5, 40)])),
+    "fused_commit": dict(lines=[SLOT_SIZES], kw=dict(fused_commit=True)),
+    "fused_commit_ladder": dict(lines=[SLOT_SIZES, SLOT_SIZES[1:]], kw=dict(
+        fused_commit=True, ctx_ladder=(3, 24), group_size=2)),
+    "dense_merge": dict(lines=[SLOT_SIZES], kw=dict(dense_merge=True)),
+    "dense_merge_fused": dict(lines=[SLOT_SIZES], kw=dict(
+        dense_merge=True, fused_commit=True)),
+    "peek_rows": dict(lines=[SLOT_SIZES, SLOT_SIZES[2:]], kw=dict(
+        peek_rows=4, group_size=1)),
+    # the int8 LM step (``--lm-int8``)
+    "lm_int8": dict(lines=[SLOT_SIZES], kw={}, int8=True),
+    "lm_int8_fused_ladder": dict(lines=[SLOT_SIZES], kw=dict(
+        fused_commit=True, ctx_ladder=(4, 24)), int8=True),
+    # K4's plain version swapped in, as the card's smoke does to hold the
+    # kernels to their plain versions: it writes the other parity's cache
+    "plain_k4": dict(lines=[SLOT_SIZES], kw=dict(ctx_ladder=(4, 24)),
+                     plain_k4=True),
+}
+
+
+def _lines_input(lines, seed):
+    """``_inputs`` of lines of ``_block_line`` blocks, padded with blank
+    frames to the longest."""
+    parts = [_block_line(sizes, seed + i) for i, sizes in enumerate(lines)]
+    T = max(p.shape[0] for p in parts)
+    lt = np.zeros((T, len(parts), parts[0].shape[2]), np.float32)
+    lt[:, :, 0] = 12.0
+    for i, p in enumerate(parts):
+        lt[:p.shape[0], i] = p[:, 0]
+    return _inputs(lt)[1]
+
+
+def _decode(setup, targs, **kw):
+    codec, _, clm, (c2l, l2c) = setup
+    kw = dict(BASE, unknown_id=codec.unknown_id, **kw)
+    return bl.make_lm_beam_search(clm, c2l, l2c, **kw)(*targs)
+
+
+def _bit_equal(want, got):
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and torch.equal(w, g)
+
+
+def _fresh(setup):
+    """``setup`` with a copy of its LM that holds no ``StepStore`` yet."""
+    codec, jclm, clm, tables = setup
+    clm = copy.copy(clm)
+    clm.segment_graphs = {}
+    return codec, jclm, clm, tables
+
+
+def _int8(setup):
+    """``setup`` with its LM's step in int8 (``quant_int8``)."""
+    codec, jclm, clm, tables = setup
+    q8 = CachedLM(clm.model, lm_flax_to_torch(jax.tree.map(np.asarray,
+                                                          jclm.p)),
+                  quant_int8=True)
+    return codec, jclm, q8, tables
+
+
+def _launch_counts():
+    return tuple(mod.launches for mod in (peek_attention, logits_lse,
+                                          cache_gather))
+
+
+def _graph_counts():
+    return (bl.segment_steps, bl.segment_graph_captures,
+            bl.segment_graph_replays)
+
+
+def _since(before):
+    return [b - a for a, b in zip(before, _graph_counts())]
+
+
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_static_steps_equal_eager_loop(setup, monkeypatch, case):
+    """The segment step over static buffers (the card's path, eager on the
+    CPU) gives the eager loop's prefixes, lengths and overflow flags bit for
+    bit: every slot count 0..8, ladder climbs mid-group, the fused commit,
+    the dense merge, compacted peek rows, one and two groups, the int8 LM
+    step, K4's plain version. The first decode of new shapes runs the eager
+    loop and captures nothing; the second captures each step key, then
+    replays every step."""
+    spec = STATIC_CASES[case]
+    if spec.get("int8"):
+        setup = _int8(setup)
+    targs = _lines_input(spec["lines"], seed=len(case))
+    want = _decode(setup, targs, **spec["kw"])
+    _static_steps(monkeypatch)
+    if spec.get("plain_k4"):
+        monkeypatch.setattr(cache_gather, "gather_write_kv",
+                            cache_gather.gather_write_kv_plain)
+    setup = _fresh(setup)
+    store = bl.StepStore.of(setup[2])
+    before = _graph_counts()
+    _bit_equal(want, _decode(setup, targs, **spec["kw"]))
+    steps, caps, reps = _since(before)
+    assert steps > len(SLOT_SIZES) and reps < steps
+    if len(spec["lines"]) == spec["kw"].get("group_size", 1):
+        assert caps == reps == 0      # one group
+        assert not (store.graphs or store.shapes or store.kv)
+    before = _graph_counts()
+    got = _decode(setup, targs, **spec["kw"])
+    _bit_equal(want, got)
+    assert _since(before) == [steps, len(store.graphs) - caps, steps]
+    assert bool((got[1] > 0).all())
+    stepped = {key[2:] for key in store.graphs}       # (Lc, slots, parity)
+    if spec["kw"].get("group_size", 1) == 1:
+        assert {s[1] for s in stepped} >= set(range(RM + 1))
+    if "ctx_ladder" in spec["kw"]:
+        assert len({s[0] for s in stepped}) >= 2
+
+
+def test_static_steps_two_groups_of_other_lengths(setup, monkeypatch):
+    """Batches of two lengths in turn, each equal to the eager loop; the
+    second batch of a length steps over the store's buffers of its shapes,
+    and the segment index advances on the device, one a step of the
+    group."""
+    first = _lines_input([SLOT_SIZES, [2, 8, 0, 3]], seed=1)
+    second = _lines_input([[1, 4, 0, 8, 6, 2, 5, 3, 7]], seed=2)
+    assert first[0].shape[1] != second[0].shape[1]
+    kw = dict(ctx_ladder=(3, 24))
+    want = [_decode(setup, a, **kw) for a in (first, second)]
+    last = _decode(setup, tuple(x[1:] for x in first), **kw)
+    _static_steps(monkeypatch)
+    setup = _fresh(setup)
+    store = bl.StepStore.of(setup[2])
+    for args, w in zip((first, second, first, second), want * 2):
+        _bit_equal(w, _decode(setup, args, **kw))
+    # a group of the first batch's last line, over the first's buffers
+    steps = bl.segment_steps
+    _bit_equal(last, _decode(setup, tuple(x[1:] for x in first), **kw))
+    assert int(store.seg) == bl.segment_steps - steps > 0
+    assert len(store.shapes) == 2
+
+
+class _FakeGraph:
+    """A captured step on the CPU: its replay runs the body with no launch
+    counted, as a real replay calls no wrapper."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        with launch_tally.tallying():
+            self.body()
+
+
+class _Reads(TorchDispatchMode):
+    """The storages the ops in its block read that they did not make (a
+    ``torch.tensor`` constant, made on the host, is the value it holds)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made, self.read = set(), set()
+
+    @staticmethod
+    def _ptrs(tree):
+        return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is not torch.ops.aten.lift_fresh.default:
+            self.read |= self._ptrs((args, kwargs)) - self.made
+        out = func(*args, **(kwargs or {}))
+        self.made |= self._ptrs(out)
+        return out
+
+
+def _graph_safe(store, clm):
+    """The storages a captured step may read: the store's static buffers
+    and constants, and the LM's weights (the int8 step's too)."""
+    held = [store.seg, store.kv, store.consts,
+            [(sin, st) for sin, st in store.shapes.values()],
+            [clm.emb, clm.emb32, clm.pos, clm.ln_f, clm.layers, clm._wq]]
+    return _Reads._ptrs(held)
+
+
+def _counting(monkeypatch, mod, name):
+    """``mod.name`` (a kernel's wrapper, its plain version on the CPU)
+    counting its calls in ``mod.launches`` as the kernel's wrapper counts
+    its launches."""
+    fn = getattr(mod, name)
+
+    def wrapped(*a, **k):
+        if launch_tally.counted(mod.__name__):
+            mod.launches += 1
+        return fn(*a, **k)
+    monkeypatch.setattr(mod, name, wrapped)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_static_steps_replay_accounting(setup, monkeypatch, fused):
+    """Captures and replays (CUDA graphs stood in for by ``_FakeGraph``)
+    keep the eager loop's texts and K2-K4 launch counts. A group of new
+    shapes runs eagerly; the next group of those shapes captures each step
+    key its family has taken, adding no launch, before its first step, and
+    replays every step, adding the capture's tallied counts; a captured
+    step reads only the store's buffers, its constants and the LM's
+    weights. Each capture is a ``search.capture`` span; a second decode
+    captures nothing."""
+    _replay_accounting(setup, monkeypatch, fused_commit=fused)
+
+
+def test_static_steps_replay_accounting_lm_int8(setup, monkeypatch):
+    """As ``test_static_steps_replay_accounting``, with the LM's step in
+    int8: a captured step reads the int8 weights too, and nothing else."""
+    _replay_accounting(_int8(setup), monkeypatch)
+
+
+def _replay_accounting(setup, monkeypatch, **kw):
+    for mod, name in ((peek_attention, "peek_cache_attention"),
+                      (logits_lse, "lse_rows"),
+                      (cache_gather, "gather_write_kv")):
+        _counting(monkeypatch, mod, name)
+    setup = _fresh(setup)
+    # two groups of one length: the second finds the first's steps
+    targs = _lines_input([SLOT_SIZES * 2, SLOT_SIZES[::-1] + [9]], seed=5)
+    c0 = _launch_counts()
+    want = _decode(setup, targs, **kw)
+    counts = [b - a for a, b in zip(c0, _launch_counts())]
+    assert all(counts)
+
+    _static_steps(monkeypatch)
+    store = bl.StepStore.of(setup[2])
+    store.pool = "a pool"
+
+    def fake_capture(body, pool, stream):
+        # a capture runs nothing: the static tensors are put back; and a
+        # graph reads only what outlives it
+        saved = [(t, t.clone()) for t in
+                 [store.seg] + [t for kv in store.kv for t in kv]
+                 + [t for sin, st in store.shapes.values()
+                    for b in [sin, *st] for t in b.values()]]
+        with _Reads() as reads:
+            body()
+        assert reads.read <= _graph_safe(store, setup[2])
+        for t, c in saved:
+            t.copy_(c)
+        return _FakeGraph(body)
+    monkeypatch.setattr(bl, "_capture", fake_capture)
+    for decode in range(2):
+        before = (_launch_counts(), _graph_counts())
+        profiling.enable()
+        try:
+            got = _decode(setup, targs, **kw)
+        finally:
+            spans = [s for s in profiling.collect()
+                     if s.name == "search.capture"]
+            profiling.enable(False)
+        _bit_equal(want, got)
+        assert [b - a for a, b in
+                zip(before[0], _launch_counts())] == counts
+        steps, caps, reps = _since(before[1])
+        assert caps == len(spans)
+        assert all("Lc" in s.attrs["key"] for s in spans)
+        if decode == 0:
+            assert caps == len(store.graphs) > 0
+            assert 0 < reps < steps
+        else:
+            assert caps == 0 and reps == steps
+
+
+def test_static_steps_shapes_seen_once_run_eagerly(setup, monkeypatch):
+    """Batches of shapes seen once (as the eval CLI pads each batch to its
+    widest line) run the eager loop, allocate no static buffer and capture
+    nothing; a shape seen again captures and replays. The store keeps the
+    buffers of the ``SHAPES`` shapes loaded last, and the graphs of no
+    other."""
+    _static_steps(monkeypatch)
+    setup = _fresh(setup)
+    store = bl.StepStore.of(setup[2])
+    inputs = [_lines_input([SLOT_SIZES[:i + 2]], seed=i)
+              for i in range(store.SHAPES + 2)]
+    assert len({a[0].shape[1] for a in inputs}) == len(inputs)
+    before = _graph_counts()
+    for targs in inputs:
+        _decode(setup, targs)
+    assert _since(before)[1:] == [0, 0]
+    assert not (store.shapes or store.graphs or store.kv)
+    assert len(store.keys) == len(inputs)
+    for targs in inputs:
+        before = _graph_counts()
+        _decode(setup, targs)
+        steps, caps, reps = _since(before)
+        assert caps > 0 and reps == steps > 0
+        assert len(store.shapes) <= store.SHAPES
+        assert {key[1] for key in store.graphs} <= set(store.shapes)
+    assert len(store.shapes) == store.SHAPES
+
+
+def test_launch_tally_is_the_calling_threads():
+    """A launch made inside ``tallying()`` is tallied for the block and not
+    counted; the launches another thread makes meanwhile count as they
+    would, and none of them enters the tally."""
+    mod = cache_gather
+    saved = mod.launches
+
+    def launch():
+        if launch_tally.counted(mod.__name__):
+            mod.launches += 1
+    inside, done = threading.Event(), threading.Event()
+
+    def other():
+        inside.wait()
+        for _ in range(5):
+            launch()
+        done.set()
+    thread = threading.Thread(target=other)
+    thread.start()
+    try:
+        with launch_tally.tallying() as tally:
+            launch()
+            inside.set()
+            done.wait()
+            launch()
+        launch()
+    finally:
+        thread.join()
+    assert tally == {mod.__name__: 2}
+    assert mod.launches - saved == 6
