@@ -1,7 +1,8 @@
 """What the benchmark reads from the repository, with its own code: the
 packed weights (``torch.save`` + ``lzma``, in parts listed with their
 sha256 in a manifest), the test and tuning line images, their labels, the
-recognizer's character list and the LM's dictionary.
+recognizer's character list and the LM's dictionary; and weights drawn
+from a seed where a configuration has no file of them (``seeded_state``).
 
 A packed artifact is unpacked once a checkout: the state dict is written as
 a plain ``torch.save`` file under ``CACHE``, keyed by the parts' sha256,
@@ -75,6 +76,34 @@ def load_state(rel: str) -> Dict[str, torch.Tensor]:
     state = torch.load(path, map_location="cpu", weights_only=True)
     return {k: (v.float() if v.is_floating_point() else v)
             for k, v in state.items()}
+
+
+def seeded_state(specs: Dict[str, tuple], seed: int, device,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Dict[str, torch.Tensor]:
+    """A state dict drawn from ``seed`` on ``device``: ``specs`` maps each
+    name to ``(shape, init)``, where ``init`` is a normal's standard
+    deviation, ``"ones"`` or ``"zeros"``. Each tensor's generator is seeded
+    from ``seed`` and the sha256 of its name, so that its values depend on
+    neither the other names nor their order."""
+    device = torch.device(device)
+    out = {}
+    for name, (shape, init) in specs.items():
+        shape = tuple(int(s) for s in shape)
+        if init == "ones":
+            out[name] = torch.ones(shape, device=device, dtype=dtype)
+        elif init == "zeros":
+            out[name] = torch.zeros(shape, device=device, dtype=dtype)
+        elif isinstance(init, (int, float)) and not isinstance(init, bool):
+            digest = hashlib.sha256(f"{int(seed)}:{name}".encode()).digest()
+            g = torch.Generator(device=device)
+            g.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+            t = torch.randn(shape, generator=g, device=device, dtype=dtype)
+            out[name] = t.mul_(float(init))
+        else:
+            raise ValueError(f"{name}: init {init!r} is not a standard "
+                             f"deviation, 'ones' or 'zeros'")
+    return out
 
 
 def read_gray(path: str) -> np.ndarray:

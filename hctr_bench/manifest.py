@@ -8,7 +8,15 @@ mix, cell's limits and per-layer metric is a file of its own here.
   * ``limits/<cell>.json``: the limits of the numbers that decide
     ``correct``, each with the readings it was set from;
   * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``
-    returning a number or None where it finds nothing to read.
+    returning a number or None where it finds nothing to read. It may
+    declare ``COUNTERS = {"<name>": "<module>:<attribute>"}``, counters of
+    the port whose change over the traced run's first window it reads
+    (``ctx.counter(name)``), and ``SPANS = True``, to have the port's spans
+    kept through that window (``ctx.spans``);
+  * ``lms/<arch>.py``: the plug-in of a configuration's fusion LM (its
+    ``lm`` block's ``arch``, ``char-transformer`` where it names none),
+    with ``load_state``, ``program_lm``, ``reference_lm``, ``token_flops``
+    and optionally ``bounds``.
 """
 
 from __future__ import annotations
@@ -16,10 +24,13 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
-from typing import Callable, Dict, List
+from types import ModuleType
+from typing import Callable, Dict, Iterable, List, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+DEFAULT_LM = "char-transformer"
+LM_FUNCTIONS = ("load_state", "program_lm", "reference_lm", "token_flops")
 
 
 def _json(path: str) -> dict:
@@ -28,8 +39,9 @@ def _json(path: str) -> dict:
 
 
 class Manifest:
-    """``BENCHMARK.json``'s entries by name; ``folder`` holds the traffic
-    and limits files."""
+    """``BENCHMARK.json``'s entries by name; ``folder`` holds the traffic,
+    limits, metric and LM plug-in files (the last two, where it lacks
+    them, are the benchmark's own)."""
 
     def __init__(self, data: dict, folder: str = HERE):
         self.data = data
@@ -67,17 +79,56 @@ class Manifest:
     def per_layer(self, cell: str) -> List[dict]:
         return [m for m in self.data["per_layer"] if self._applies(m, cell)]
 
+    def _code(self, sub: str, name: str) -> str:
+        """``<sub>/<name>.py`` in ``folder``, or else the benchmark's own."""
+        path = os.path.join(self.folder, sub, f"{name}.py")
+        return path if os.path.isfile(path) else os.path.join(
+            HERE, sub, f"{name}.py")
+
+    def metrics(self, metrics: List[dict]) -> Dict[str, ModuleType]:
+        """``name -> metrics/<name>.py`` of each of ``metrics``."""
+        return {m["name"]: _load(self._code("metrics", m["name"]),
+                                 "hctr_bench_metric_" + m["name"])
+                for m in metrics}
+
+    def lm(self, lm_cfg: dict) -> ModuleType:
+        """The plug-in ``lms/<arch>.py`` of a configuration's ``lm``
+        block."""
+        arch = lm_cfg.get("arch", DEFAULT_LM)
+        module = _load(self._code("lms", arch), "hctr_bench_lm_" + arch)
+        missing = [f for f in LM_FUNCTIONS
+                   if not callable(getattr(module, f, None))]
+        if missing:
+            raise AttributeError(f"lms/{arch}.py lacks {missing}")
+        if not hasattr(module, "bounds"):
+            module.bounds = {}
+        return module
+
+
+def _load(path: str, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(
+        name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
 
 def reader(metric: str) -> Callable:
     """The ``read`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(HERE, "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(
-        "hctr_bench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(os.path.join(HERE, "metrics", f"{metric}.py"),
+                 "hctr_bench_metric_" + metric).read
 
 
-def readers(metrics: List[dict]) -> Dict[str, Callable]:
-    return {m["name"]: reader(m["name"]) for m in metrics}
+def declared(modules: Iterable[ModuleType]) -> Tuple[Dict[str, str], bool]:
+    """What metric modules ask the traced run's first window for: the
+    port's counters (``COUNTERS``, merged by name) and whether to keep the
+    port's spans (any ``SPANS``)."""
+    counters: Dict[str, str] = {}
+    spans = False
+    for module in modules:
+        for name, path in getattr(module, "COUNTERS", {}).items():
+            if counters.setdefault(name, path) != path:
+                raise ValueError(f"counter {name!r} is declared as both "
+                                 f"{counters[name]!r} and {path!r}")
+        spans = spans or bool(getattr(module, "SPANS", False))
+    return counters, spans

@@ -5,7 +5,9 @@
 
 Looks the cell up in ``BENCHMARK.json``, builds the port
 (``handwritten_chinese_ocr_samples_torch``) for it from the weights it
-unpacks itself, warms the shapes the cell's traffic uses, then drives the
+unpacks itself (its fusion LM through the configuration's LM plug-in,
+``lms/<arch>.py``, which may draw the weights from a seed), warms the
+shapes the cell's traffic uses, then drives the
 traffic for ``--seconds`` (``traffic.py``): a closed loop through
 ``ServingEngine.infer_arrays``, or open-loop requests through
 ``ServingDaemon``. Afterwards it reads the peak memory, frees the program,
@@ -13,8 +15,9 @@ and holds a sample of what the window produced against the plain reference
 (``reference.py``): ``correct`` is whether every compared number is within
 its limit (``limits/<cell>.json``). The last line of standard output is one
 JSON object; ``--trace 1`` reports the per-layer metrics (read by
-``metrics/<name>.py`` from a card-only profiler trace of the window and the
-benchmark's own spans) instead of the end-to-end ones.
+``metrics/<name>.py`` from a card-only profiler trace of the window, the
+benchmark's own spans, and the port's counters and spans that a metric
+declares) instead of the end-to-end ones.
 
 Exits non-zero, printing no result, where there is no card (or fewer than
 the cell asks for) and where JAX or the JAX package was loaded.
@@ -56,7 +59,7 @@ import roofline  # noqa: E402
 import system  # noqa: E402
 import trace  # noqa: E402
 import traffic as tr  # noqa: E402
-from manifest import Manifest, readers  # noqa: E402
+from manifest import Manifest, declared  # noqa: E402
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax",
           "handwritten_chinese_ocr_samples_tpu"}
@@ -92,6 +95,12 @@ class Cell:
         self.config = manifest.config(self.spec["config"])
         self.traffic = manifest.traffic(self.spec["traffic"])
         self.limits = manifest.limits(name)
+        # the fusion LM's plug-in (``lms/<arch>.py``)
+        self.lm = (manifest.lm(self.config["lm"]) if "lm" in self.config
+                   else None)
+        self.metrics = manifest.metrics(manifest.per_layer(name))
+        self.counter_paths, self.want_spans = declared(
+            self.metrics.values())
         self.device = torch.device(device)
         self.control = control
         self.lm_int8 = lm_int8
@@ -108,11 +117,11 @@ class Cell:
     def setup(self) -> None:
         c, t = self.config, self.traffic
         self.state = assets.load_state(c["weights"])
-        self.lm_state = (assets.load_state(c["lm"]["weights"])
+        self.lm_state = (self.lm.load_state(c["lm"], self.device)
                          if t["route"] == "ss" else None)
         program_control = self.control and c["control"]["kind"] == "program"
         self.engine = system.build_engine(
-            c, t, self.state, self.lm_state,
+            c, t, self.state, self.lm, self.lm_state,
             assets.repo_path(c["chars_list"]), self.device,
             int8=program_control, lm_int8=program_control or self.lm_int8)
         if self.engine._int8:
@@ -173,12 +182,28 @@ class Cell:
         return out
 
     # ---------------------------------------------------------- window
+    def windows(self, seed: int, seconds: float, traced: bool) -> tuple:
+        """A run's windows: the one its end-to-end metrics or, ``traced``,
+        its per-layer metrics read (with the benchmark's spans and what the
+        cell's metrics declare), and then, ``traced``, the one under the
+        card's profiler (None otherwise)."""
+        out = self.window(seed, seconds, spans=traced)
+        return out, (self.window(seed, seconds, profile=True)
+                     if traced else None)
+
     def window(self, seed: int, seconds: float, spans: bool = False,
-               profile: bool = False) -> dict:
+               profile: bool = False,
+               program_spans: bool | None = None) -> dict:
         """Drive the traffic of ``seed`` for ``seconds`` and keep what the
         check reads. ``spans`` times the forward and the engine's
-        preprocessing; ``profile`` traces the card instead of keeping what
-        the check reads."""
+        preprocessing, and takes the window's change of the port's
+        counters that the cell's metrics declare and, where one of them
+        asks for them, the port's spans (``program_spans``, where given,
+        says whether to keep them); ``profile`` traces the card instead of
+        keeping what the check reads."""
+        if program_spans is None:
+            program_spans = spans and self.want_spans
+        paths = self.counter_paths if spans else {}
         rec = self.recorder
         plan = self.plan(seed, seconds)
         self.watch([] if profile else plan["lines"])
@@ -195,9 +220,11 @@ class Cell:
                 return out
             self.engine.preprocess_array = timed_preprocess
         before = system.launch_counts()
+        marks = system.read_counters(paths)
         run = (self._closed if self.traffic["kind"] == "closed"
                else self._open)
-        with trace.card_profile(profile) as prof:
+        with system.program_spans(program_spans) as records, \
+                trace.card_profile(profile) as prof:
             out = run(seed, seconds)
             self.sync()
             out["trace_window_s"] = time.perf_counter() - out["t_start"]
@@ -206,6 +233,9 @@ class Cell:
         rec.timed = False
         after = system.launch_counts()
         out["counters"] = {k: after[k] - before[k] for k in after}
+        out["deltas"] = {k: v - marks[k]
+                         for k, v in system.read_counters(paths).items()}
+        out["spans"] = records
         out["preprocess_us"] = pre_us
         out["forward_ms"] = rec.forward_ms() if spans else []
         out["forward_shapes"] = list(rec.shapes)
@@ -401,8 +431,7 @@ class Cell:
         len_bonus * length``, each term worked out exactly; largest over
         the sample."""
         lmc, cls = self.config["lm"], self.classes
-        lm = ref.CharLM(self.lm_state, lmc["config"],
-                        assets.read_lm_dict(lmc["dict"]), self.device)
+        lm = self.lm.reference_lm(lmc, self.lm_state, self.device)
         search = ref.LMSearch(lm, cls, beam=lmc["beam_size"],
                               depth=lmc["search_depth"],
                               prune=math.log(lmc["prune"]),
@@ -455,9 +484,13 @@ def correct_of(numbers: dict, limits: dict) -> tuple:
 class Context:
     """What a per-layer metric's reader gets (``metrics/<name>.py``): of a
     window run as the end-to-end runs run it (with the benchmark's spans),
-    its wall time, counters, spans and the lines it served; of a second,
-    traced window, its wall time, counters, shapes, kernel sums and busy
-    time; and the frozen arithmetic of ``roofline.py``."""
+    its wall time, counters, spans, the change of the counters the metrics
+    declare (``counter``), the port's spans where one asked for them
+    (``spans``) and the lines it served; of a second, traced window, its
+    wall time, counters, shapes, kernel sums and busy time; the frozen
+    arithmetic of ``roofline.py``; and the cell's LM plug-in (``lm``:
+    ``token_flops``, ``bounds``), None where the configuration has no
+    LM."""
 
     def __init__(self, cell: Cell, out: dict, traced: dict, kernels,
                  busy_s):
@@ -478,6 +511,17 @@ class Context:
         self.kernels = kernels
         self.busy_s = busy_s
         self.roofline = roofline
+        self.lm = cell.lm
+        self.spans = out.get("spans", [])
+        self._deltas = out.get("deltas", {})
+
+    def counter(self, name: str):
+        """The change over the window of the port's counter that a metric
+        declares as ``name`` in its ``COUNTERS``."""
+        if name not in self._deltas:
+            raise KeyError(f"no metric of this cell declares the counter "
+                           f"{name!r} (declared: {sorted(self._deltas)})")
+        return self._deltas[name]
 
     def kernel_ms(self, part: str) -> float:
         """Device ms of the traced window's kernels whose name holds
@@ -516,6 +560,16 @@ def end_to_end(cell: Cell, out: dict, setup_s: float) -> dict:
     return m
 
 
+def per_layer(manifest: Manifest, cell: Cell, ctx: Context) -> dict:
+    """The cell's per-layer metrics that find something to read."""
+    metrics = {}
+    for m in manifest.per_layer(cell.name):
+        value = cell.metrics[m["name"]].read(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    return metrics
+
+
 def setup_parts() -> dict:
     """What a checkout's first run pays on top of the others' set-up: the
     weights unpacked and the kernels built in this run."""
@@ -539,9 +593,7 @@ def run(args) -> dict:
     cell = Cell(manifest, args.workload, device)
     cell.setup()
     setup_s = time.perf_counter() - T_START
-    out = cell.window(args.seed, args.seconds, spans=bool(args.trace))
-    traced = (cell.window(args.seed, args.seconds, profile=True)
-              if args.trace else None)
+    out, traced = cell.windows(args.seed, args.seconds, bool(args.trace))
     peak = torch.cuda.max_memory_allocated(device)
     picked = cell.sample(out)
     result_device = {"platform": "gpu",
@@ -555,12 +607,8 @@ def run(args) -> dict:
         busy_s, gaps = trace.busy_and_gaps(events)
         result_device.update(busy_s=busy_s,
                              window_s=traced["trace_window_s"])
-        ctx = Context(cell, out, traced, kernels, busy_s)
-        metrics = {}
-        for m in manifest.per_layer(args.workload):
-            value = readers([m])[m["name"]](ctx)
-            if value is not None:
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        metrics = per_layer(manifest, cell,
+                            Context(cell, out, traced, kernels, busy_s))
         extra["breakdown"] = trace.breakdown(kernels, gaps)
         del events
         traced["prof"] = None

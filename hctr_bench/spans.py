@@ -22,9 +22,11 @@ bf16 matmuls, each in a span that ends in ``torch.cuda.synchronize()``,
 under the card-only profiler, and prints whether every kernel lies inside
 its span on the spans' clock, and by how much.
 
-``run.py`` does not record the program's spans: this is the one command
-that does. Both exit non-zero, printing no result, where there is no
-card; JAX is never imported.
+``run.py`` keeps the program's spans only through a traced run's first
+window, and only where one of the cell's metrics declares ``SPANS``;
+both commands record them through ``system.program_spans``. Both exit
+non-zero, printing no result, where there is no card; JAX is never
+imported.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ import numpy as np
 import torch
 
 import run as bench
+import system
 import trace
-from manifest import Manifest, readers
+from manifest import Manifest
 
 # the thread that issues the card's work: the caller's in a closed loop,
 # the daemon's dispatcher under open-loop load
@@ -49,6 +52,7 @@ DISPATCH_THREAD = {"closed": "MainThread", "open": "hctr-serving"}
 WAIT = "daemon.wait"          # the dispatcher with nothing to do
 OUTSIDE = "outside"           # idle with no span of the thread open
 TOP = 10
+SEGMENT_STEPS = {"steps": ".decode.beam_lm_device:segment_steps"}
 
 
 def timeline(spans, thread: str) -> List[Tuple[int, int, str]]:
@@ -206,16 +210,6 @@ def clock_skew(events, spans) -> dict:
             "lag_ns_median": float(np.median(lag)) if lag else None}
 
 
-def _profiling():
-    from handwritten_chinese_ocr_samples_torch.utils import profiling
-    return profiling
-
-
-def _segment_steps() -> int:
-    from handwritten_chinese_ocr_samples_torch.decode import beam_lm_device
-    return beam_lm_device.segment_steps
-
-
 def _card():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card; this machine has none")
@@ -227,18 +221,15 @@ def _card():
 def clock(device, repeats: int = 20, size: int = 8192) -> dict:
     """``repeats`` spans, each around one ``size``-square bf16 matmul and
     a ``torch.cuda.synchronize()``, under the card-only profiler."""
-    prof_mod = _profiling()
+    span = system.profiling().span
     x = torch.randn(size, size, device=device, dtype=torch.bfloat16)
     (x @ x).sum().item()
-    prof_mod.enable(True)
-    prof_mod.collect()
-    with trace.card_profile(True) as prof:
+    with system.program_spans(True) as spans, \
+            trace.card_profile(True) as prof:
         for _ in range(repeats):
-            with prof_mod.span("clock"):
+            with span("clock"):
                 x @ x
                 torch.cuda.synchronize(device)
-    spans = prof_mod.collect()
-    prof_mod.enable(False)
     events = [e for e in trace.device_events(prof)
               if not e[0].startswith(("Memcpy", "Memset"))]
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -269,11 +260,8 @@ def _window_numbers(manifest: Manifest, cell, out: dict, steps: int,
     """A first window's end-to-end number and the per-layer metrics that
     read it (``metrics/<name>.py``), with the span metrics of ``spans``."""
     ctx = bench.Context(cell, out, out, None, None)
-    per_layer = {}
-    for m in manifest.per_layer(cell.name):
-        value = readers([m])[m["name"]](ctx)
-        if value is not None:
-            per_layer[m["name"]] = value
+    per_layer = {k: v["value"]
+                 for k, v in bench.per_layer(manifest, cell, ctx).items()}
     e2e = {k: v["value"] for k, v in bench.end_to_end(cell, out, 0.0).items()
            if k != "setup_s"}
     return {"end_to_end": e2e, "per_layer": per_layer,
@@ -289,34 +277,25 @@ def measure(manifest: Manifest, name: str, device, seed: int,
     """One set-up of cell ``name``, ``pairs`` pairs of first windows
     (spans on and off), then a window under the card-only profiler with
     the spans on."""
-    prof_mod = _profiling()
     cell = bench.Cell(manifest, name, device)
     cell.setup()
     thread = DISPATCH_THREAD[cell.traffic["kind"]]
     windows, first_spans = [], None
-    try:
-        # on, off, off, on, ...: a drift over the run weighs on both alike
-        for k in range(2 * pairs):
-            on = k % 4 in (0, 3)
-            prof_mod.enable(on)
-            prof_mod.collect()
-            steps = _segment_steps()
-            out = cell.window(seed, seconds, spans=True)
-            steps = _segment_steps() - steps
-            spans = prof_mod.collect()
-            if on and first_spans is None:
-                first_spans = spans
-            windows.append({"spans_on": on,
-                            **_window_numbers(manifest, cell, out, steps,
-                                               spans)})
-        prof_mod.enable(True)
-        prof_mod.collect()
-        traced = cell.window(seed, seconds, profile=True)
-        t0, t1 = traffic_window_ns(traced, prof_mod.now_ns())
-        spans = prof_mod.collect()
-    finally:
-        prof_mod.enable(False)
-        prof_mod.collect()
+    # on, off, off, on, ...: a drift over the run weighs on both alike
+    for k in range(2 * pairs):
+        on = k % 4 in (0, 3)
+        steps = system.read_counters(SEGMENT_STEPS)["steps"]
+        out = cell.window(seed, seconds, spans=True, program_spans=on)
+        steps = system.read_counters(SEGMENT_STEPS)["steps"] - steps
+        spans = out["spans"]
+        if on and first_spans is None:
+            first_spans = spans
+        windows.append({"spans_on": on,
+                        **_window_numbers(manifest, cell, out, steps,
+                                           spans)})
+    traced = cell.window(seed, seconds, profile=True, program_spans=True)
+    t0, t1 = traffic_window_ns(traced, system.profiling().now_ns())
+    spans = traced["spans"]
     events = (trace.device_events(traced["prof"])
               if traced["prof"] is not None else [])
     busy_s, _ = trace.busy_and_gaps(events)

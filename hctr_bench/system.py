@@ -2,18 +2,25 @@
 built for one cell from the weights the benchmark loaded, and the few
 places where the benchmark wraps it to record what it produced.
 
-This is the only module of the benchmark that imports the port. It reads
-the port's launch counters and hands the port the same inputs that the
-reference gets.
+This is the only module of the benchmark that imports the port (beside
+the port's LM that an LM plug-in's ``program_lm`` builds). It reads the
+port's launch counters, the counters that metrics declare and the port's
+spans, and hands the port the same inputs that the reference gets.
 """
 
 from __future__ import annotations
 
+import contextlib
+import importlib
+import importlib.util
 import time
-from typing import Dict, List
+from typing import Any, Dict, Iterator, List
 
 import numpy as np
 import torch
+
+PORT = "handwritten_chinese_ocr_samples_torch"
+
 
 class Recorder:
     """Stands in for the engine's model: calls it, and keeps the trunk's
@@ -125,11 +132,54 @@ def launch_counts() -> Dict[str, int]:
             "i1_quantize": int8_conv.quantize_launches}
 
 
-def build_engine(config: dict, traffic: dict, state, lm_state, chars_file,
-                 device, int8: bool = False, lm_int8: bool = False):
-    """The cell's ``ServingEngine``. ``int8`` and ``lm_int8`` switch on the
-    program's int8 recognizer and int8 LM step, the next lower precision
-    of a bf16 configuration (its control)."""
+def read_counters(paths: Dict[str, str]) -> Dict[str, Any]:
+    """``name -> value`` of the port's counters named ``name ->
+    "<module>:<attribute>"``, the module given whole or relative to the
+    port (``.decode.beam_lm_device:segment_steps``)."""
+    out = {}
+    for name, path in paths.items():
+        module, sep, attr = path.partition(":")
+        full = importlib.util.resolve_name(module, PORT) if sep else ""
+        if full.split(".")[0] != PORT or not attr:
+            raise ValueError(f"counter {name!r}: {path!r} is not "
+                             f"'<module of {PORT}>:<attribute>'")
+        out[name] = getattr(importlib.import_module(full), attr)
+    return out
+
+
+def profiling():
+    """The port's spans (``utils/profiling``)."""
+    from handwritten_chinese_ocr_samples_torch.utils import profiling as mod
+    return mod
+
+
+@contextlib.contextmanager
+def program_spans(on: bool) -> Iterator[list]:
+    """Keeps the port's spans while the block runs (nothing with ``on``
+    false): yields a list that holds them, ``SpanRecord``s in the order
+    they ended, once the block has run."""
+    records: list = []
+    if not on:
+        yield records
+        return
+    prof = profiling()
+    prof.enable(True)
+    prof.collect()
+    try:
+        yield records
+    finally:
+        prof.enable(False)
+        records.extend(prof.collect())
+
+
+def build_engine(config: dict, traffic: dict, state, lm, lm_state,
+                 chars_file, device, int8: bool = False,
+                 lm_int8: bool = False):
+    """The cell's ``ServingEngine``; on the LM route its LM is the one that
+    ``lm``, the configuration's LM plug-in, builds from ``lm_state``.
+    ``int8`` and ``lm_int8`` switch on the program's int8 recognizer and
+    int8 LM step, the next lower precision of a bf16 configuration (its
+    control)."""
     from handwritten_chinese_ocr_samples_torch.core.codec import CTCCodec
     from handwritten_chinese_ocr_samples_torch.models.registry import (
         get_model_info)
@@ -141,20 +191,12 @@ def build_engine(config: dict, traffic: dict, state, lm_state, chars_file,
     kw = dict(widths=tuple(config["widths"]),
               int8=bool(config["int8"]) or int8)
     if traffic["route"] == "ss":
-        from handwritten_chinese_ocr_samples_torch.decode.lm_interface import (
-            TorchLMBackend)
-        from handwritten_chinese_ocr_samples_torch.lm.model import (
-            CharTransformerLM)
-        from handwritten_chinese_ocr_samples_torch.lm.tokenizer import (
-            Tokenizer)
-        from assets import repo_path
         lmc = config["lm"]
         if lmc["dtype"] not in ("bfloat16", "float32"):
             raise ValueError(f"the route serves its LM in bfloat16 or "
                              f"float32, not {lmc['dtype']}")
-        lm = TorchLMBackend(CharTransformerLM(**lmc["config"]), lm_state,
-                            Tokenizer(repo_path(lmc["dict"])), device=device)
-        kw.update(decode_method="beam-search", lm=lm, use_lm_pred=True,
+        kw.update(decode_method="beam-search",
+                  lm=lm.program_lm(lmc, lm_state, device), use_lm_pred=True,
                   use_lm_score=True, skip_search=True,
                   beam_size=lmc["beam_size"],
                   search_depth=lmc["search_depth"],

@@ -1,6 +1,6 @@
 """The harness's parts that need no model: discovery by name, isolation
-from JAX and the program, refusal without a card, the traffic generator
-and the frozen arithmetic against hand counts."""
+from JAX and the program, refusal without a card, the traffic generator,
+seeded weights and the frozen arithmetic against hand counts."""
 
 import json
 import os
@@ -9,14 +9,17 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
+import assets
 import roofline as rl
 import traffic as tr
-from manifest import HERE, ROOT, Manifest, reader
+from manifest import HERE, LM_FUNCTIONS, ROOT, Manifest, reader
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax",
           "handwritten_chinese_ocr_samples_tpu"}
 PORT = "handwritten_chinese_ocr_samples_torch"
+ASSETS = f"{PORT}/assets/demo_hard"
 
 
 def test_every_name_finds_its_file():
@@ -38,6 +41,13 @@ def test_every_name_finds_its_file():
         assert metric["moves"] in {x["name"] for x in m.data["end_to_end"]}
     for c in m.data["configs"]:
         assert c["file"].startswith(m.data["paths"][0] + "/")
+        cfg = m.config(c["name"])
+        if "lm" in cfg:
+            arch = cfg["lm"].get("arch", "char-transformer")
+            assert os.path.isfile(os.path.join(HERE, "lms", f"{arch}.py"))
+            lm = m.lm(cfg["lm"])
+            assert all(callable(getattr(lm, f)) for f in LM_FUNCTIONS)
+            assert isinstance(lm.bounds, dict)
 
 
 def _modules_after(code: str) -> set:
@@ -58,6 +68,23 @@ def test_nothing_loads_jax_and_the_reference_loads_no_program():
     assert PORT in harness
     plain = _modules_after(setup + "import reference, roofline, traffic")
     assert not plain & (BANNED | {PORT})
+    # every LM plug-in imports neither; building the program's LM loads
+    # the port
+    load = (setup + "import glob, os\nfrom manifest import Manifest\n"
+            "m = Manifest.load()\n"
+            "lms = [m.lm({'arch': os.path.basename(f)[:-3]}) for f in "
+            "sorted(glob.glob(os.path.join(m.folder, 'lms', '*.py')))]\n"
+            "assert lms\n")
+    assert not _modules_after(load) & (BANNED | {PORT})
+    cfg = f"{ASSETS}/lm/config.json"
+    build = (load + "import json\n"
+             f"c = {{'config': json.load(open({cfg!r})), "
+             f"'dict': '{ASSETS}/lm/dict.txt', 'dtype': 'float32', "
+             "'weights': {'seed': 3}}\n"
+             "lm = m.lm(c)\n"
+             "lm.program_lm(c, lm.load_state(c, 'cpu'), 'cpu')")
+    built = _modules_after(build)
+    assert PORT in built and not built & BANNED
 
 
 def test_no_card_fails_without_a_result():
@@ -105,6 +132,31 @@ def test_traffic_repeats_for_a_seed_and_differs_across_seeds():
     assert abs(len(d1) / d1[-1] - 80.0) < 2.0
     s = tr.check_sample(big, range(150), 16, [149])
     assert s == tr.check_sample(big, range(150), 16, [149]) and 149 in s
+
+
+def test_seeded_state_repeats_and_each_tensor_stands_alone():
+    specs = {"a": ((3, 4), 0.5), "b": ((3, 4), 0.5), "g": ((4,), "ones"),
+             "z": ((2,), "zeros")}
+    big = 2 ** 31 + 77
+    one = assets.seeded_state(specs, big, "cpu")
+    again = assets.seeded_state(specs, big, "cpu")
+    assert all(torch.equal(one[k], again[k]) for k in specs)
+    other = assets.seeded_state(specs, big + 1, "cpu")
+    assert not torch.equal(one["a"], other["a"])
+    assert not torch.equal(one["a"], one["b"])
+    # drawn alone or among others, in another order: the same values
+    alone = assets.seeded_state({"b": specs["b"]}, big, "cpu")
+    assert torch.equal(alone["b"], one["b"])
+    backwards = assets.seeded_state(dict(reversed(specs.items())), big,
+                                    "cpu")
+    assert all(torch.equal(one[k], backwards[k]) for k in specs)
+    assert torch.equal(one["g"], torch.ones(4))
+    assert torch.equal(one["z"], torch.zeros(2))
+    assert 0.2 < float(one["a"].std()) < 1.0
+    bf = assets.seeded_state(specs, big, "cpu", torch.bfloat16)
+    assert bf["a"].dtype == torch.bfloat16
+    with pytest.raises(ValueError):
+        assets.seeded_state({"x": ((2,), "uniform")}, 1, "cpu")
 
 
 def test_frozen_arithmetic_against_hand_counts():

@@ -3,17 +3,24 @@ program's spans on synthetic events (a gap split across two spans and one
 outside every span, ``daemon.wait`` left out of the host's share, another
 thread's spans ignored), each number read from the spans (None where its
 spans are missing), the clock check's arithmetic, and one set-up of the
-tiny skip-search and open-loop cells driven end to end on the CPU."""
+tiny skip-search and open-loop cells driven end to end on the CPU. And
+``run.py``'s windows: a metric that declares the port's counters and
+spans gets their change over the traced run's first window and the spans
+kept in it, and a cell whose metrics declare neither keeps no span."""
 
 import contextlib
+import os
 import time
 
 import pytest
 import torch
 
+import run as bench
 import spans as sp
 import trace
+from handwritten_chinese_ocr_samples_torch.utils import profiling
 from handwritten_chinese_ocr_samples_torch.utils.profiling import SpanRecord
+from manifest import Manifest
 from test_hctr_bench_cells import tiny  # noqa: F401
 
 
@@ -153,3 +160,77 @@ def test_measure_open_cell_on_the_cpu(tiny, cpu_profile):  # noqa: F811
     assert "daemon.wait" in got["traced"]["idle_by_span"]
     assert m["host_idle"] < got["traced"]["idle_pct"]
     assert got["span_ms"]["daemon.queue"][0] == 20
+
+
+# a metric of a test's own that declares two of the port's counters (one
+# relative to the port) and its spans
+PROBE = """
+COUNTERS = {"steps": ".decode.beam_lm_device:segment_steps",
+            "k4": "handwritten_chinese_ocr_samples_torch.ops.cache_gather:"
+                  "launches"}
+SPANS = True
+seen = []
+
+
+def read(ctx):
+    seen.append(ctx)
+    return ctx.counter("steps")
+"""
+
+
+def _windows(manifest, cell_name, monkeypatch, seconds=0.5):
+    """A set-up of ``cell_name``, then a traced run's two windows, noting
+    whether spans were kept at each batch the engine dispatched (in the
+    first window, in the second)."""
+    from handwritten_chinese_ocr_samples_torch.serve.engine import (
+        ServingEngine)
+    cell = bench.Cell(manifest, cell_name, "cpu")
+    cell.setup()
+    kept = []
+    real = ServingEngine.dispatch_batch
+
+    def noted(self, batch):
+        kept.append(profiling.recording())
+        return real(self, batch)
+    monkeypatch.setattr(ServingEngine, "dispatch_batch", noted)
+    out = cell.window(5, seconds, spans=True)
+    first = len(kept)
+    traced = cell.window(5, seconds, profile=True)
+    return cell, out, traced, kept[:first], kept[first:]
+
+
+def test_declared_counters_and_spans_reach_the_metric(tiny, cpu_profile,  # noqa: F811
+                                                      monkeypatch):
+    os.makedirs(os.path.join(tiny.folder, "metrics"))
+    with open(os.path.join(tiny.folder, "metrics", "probe.ss.py"), "w") as f:
+        f.write(PROBE)
+    data = dict(tiny.data, per_layer=[{"name": "probe.ss", "unit": "steps",
+                                       "workloads": ["ss"]}])
+    manifest = Manifest(data, folder=tiny.folder)
+    cell, out, traced, first, second = _windows(manifest, "ss",
+                                                monkeypatch)
+    assert cell.want_spans and set(cell.counter_paths) == {"steps", "k4"}
+    assert first and all(first) and second and not any(second)
+    assert not profiling.recording()
+    got = bench.per_layer(manifest, cell,
+                          bench.Context(cell, out, traced, None, None))
+    ctx = cell.metrics["probe.ss"].seen[-1]
+    assert got["probe.ss"]["value"] == ctx.counter("steps") > 0
+    # the same window's change as the launch counters' own
+    assert ctx.counter("k4") == ctx.counters["k4"]
+    assert {"search.segments", "engine.dispatch"} <= {s.name
+                                                      for s in ctx.spans}
+    assert traced["spans"] == [] and traced["deltas"] == {}
+    with pytest.raises(KeyError):
+        ctx.counter("undeclared")
+
+
+@pytest.mark.parametrize("cell_name", ["ss", "open"])
+def test_no_span_is_kept_where_no_metric_asks(tiny, cpu_profile,  # noqa: F811
+                                              monkeypatch, cell_name):
+    cell, out, traced, first, second = _windows(tiny, cell_name,
+                                                monkeypatch, seconds=1.0)
+    assert first and second and not any(first + second)
+    assert not cell.want_spans and cell.counter_paths == {}
+    assert out["spans"] == [] and out["deltas"] == {}
+    assert traced["spans"] == []
