@@ -16,7 +16,8 @@ mix, cell's limits and per-layer metric is a file of its own here.
   * ``lms/<arch>.py``: the plug-in of a configuration's fusion LM (its
     ``lm`` block's ``arch``, ``char-transformer`` where it names none),
     with ``load_state``, ``program_lm``, ``reference_lm``, ``token_flops``
-    and optionally ``bounds``.
+    and optionally ``bounds`` and ``program_logprobs`` (the program side
+    of the check's ``lm_gap``).
 """
 
 from __future__ import annotations

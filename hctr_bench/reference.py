@@ -1,7 +1,7 @@
 """The plain reference: the `hctr` recognizer's eval forward, the greedy CTC
-collapse, the char LM's forward, an LM-fused prefix beam search of its own
-and the scores that judge a served text, in plain PyTorch and float32 with
-TF32 off.
+collapse, the char LM's forward, the program's LM-fused skip search stated
+plainly and the scores that judge a served text, in plain PyTorch and
+float32 with TF32 off.
 
 It follows the architecture as published (SE-ResNet trunk with asymmetric
 pooling, a per-column CTC head; a pre-norm decoder-only char transformer)
@@ -333,19 +333,36 @@ def _add(beams: dict, prefix: tuple, pb: float = -math.inf,
 
 
 class LMSearch:
-    """A plain LM-fused CTC prefix beam search, one line a generator, the
-    LM's work batched over the lines of a call.
+    """The program's skip search (the JAX package's ``decode/beam_lm_device``
+    with ``skip_search=True``, after the original decoder's pruning fast
+    path) in plain terms: one line a generator, the LM's work batched over
+    the lines of a call, every LM number a full forward over a whole token
+    list (no cache).
 
-    Its rules are the skip search's, stated in plain terms: frames up to
-    ``suffix_frames`` past the last greedy character are searched; a frame
-    where one class alone lies above ``prune`` (a log-prob) is that
-    class's alone (a blank, or a character that every beam takes, or, for
-    the unknown class, nothing); every other frame is searched: each
-    beam's candidates are the frame's top ``depth`` classes above
-    ``prune`` and, once its prefix is not empty, the LM's top ``depth``
-    next characters; the rows of equal prefix merge, and the ``beam``
-    best by ``log p_ctc + lm_panelty * log p_lm + len_bonus * length``
-    survive. The beams it ends with are returned, to be scored exactly."""
+    Frames up to ``suffix_frames`` past the last greedy character are
+    visited. A frame where one class alone lies above ``prune`` (a
+    log-prob) updates every beam in place, with no search and no LM:
+
+      * the unknown class: nothing;
+      * the blank: ``pb = log(e^pb + e^pnb) + p``, ``pnb`` kept as it is;
+      * a character other than the beam's last: appended, ``pnb =
+        log(e^pb + e^pnb) + p``, ``pb = -inf``;
+      * the beam's last character: appended where ``pb`` is live (``pnb =
+        pb + p``, ``pb = -inf``), else folded into it (``pnb += p``, ``pb =
+        log(e^pb + e^pnb)`` plus the blank's log-prob at the frame).
+
+    Beams that so come to one prefix stay apart until the next search.
+    Every other frame is searched: each beam's candidates are the frame's
+    top ``depth`` classes above ``prune`` (the unknown class skipped) and,
+    once its prefix is not empty, the classes of the LM's top ``depth``
+    next tokens; a class proposed twice counts twice. Rows of equal prefix
+    merge, and the ``beam`` best survive by ``log p_ctc + lm_panelty *
+    log p_lm(prefix + suffix) + len_bonus * len(prefix)``, where
+    ``suffix`` is the next ``suffix_frames`` greedy characters after the
+    frame: a candidate is ranked with the LM's look-ahead over the greedy
+    run that follows it, not by its prefix alone. The beams it ends with
+    are returned in rank order (the first is the one the program serves),
+    to be scored exactly."""
 
     def __init__(self, lm: CharLM, classes: "Classes", *, beam: int,
                  depth: int, prune: float, lm_panelty: float,
@@ -367,20 +384,28 @@ class LMSearch:
         return self.tok_of[list(prefix)].tolist() if prefix else []
 
     def run(self, logps: List[torch.Tensor]) -> List[List[tuple]]:
-        """``(T, C)`` log-probs a line -> each line's final beams."""
+        """``(T, C)`` log-probs a line -> each line's final beams, best
+        first. A line's generator asks for token lists; each is answered
+        with its LM log-prob after ``<s>`` and its top ``depth`` next
+        tokens."""
         gens = [self._line(lp) for lp in logps]
         finals: List[List[tuple]] = [[] for _ in gens]
-        asks = {}
-        for i, g in enumerate(gens):
-            asks[i] = self._step(g, None, finals, i)
+        asks = {i: self._step(g, None, finals, i) for i, g in enumerate(gens)}
         while any(a is not None for a in asks.values()):
-            want = sorted({p for a in asks.values() if a for p in a})
-            sums, nexts = self.lm.score([self.tokens(p) for p in want])
-            nexts = nexts.cpu()
-            got = {p: (sums[k], nexts[k]) for k, p in enumerate(want)}
+            want = sorted({s for a in asks.values() if a for s in a})
+            got = {}
+            if want:
+                sums, nexts = self.lm.score([list(s) for s in want])
+                top = nexts.topk(self.depth, dim=-1)
+                # ties in the order of a stable sort: the lower token first
+                order = [sorted(zip((-v for v in vals), ids))
+                         for vals, ids in zip(top.values.tolist(),
+                                              top.indices.tolist())]
+                got = {s: (sums[k], [tk for _, tk in order[k]])
+                       for k, s in enumerate(want)}
             for i, a in list(asks.items()):
                 if a is not None:
-                    asks[i] = self._step(gens[i], {p: got[p] for p in a},
+                    asks[i] = self._step(gens[i], {s: got[s] for s in a},
                                          finals, i)
         return finals
 
@@ -392,56 +417,64 @@ class LMSearch:
             finals[i] = stop.value
             return None
 
+    def _fast(self, beams: list, c: int, p: float, p_blank: float) -> list:
+        """A frame where class ``c`` alone lies above the prune."""
+        if c == self.cls.blank:
+            return [(pre, _lae(pb, pnb) + p, pnb) for pre, pb, pnb in beams]
+        out = []
+        for pre, pb, pnb in beams:
+            if not pre or pre[-1] != c:
+                out.append((pre + (c,), -math.inf, _lae(pb, pnb) + p))
+            elif pb != -math.inf:
+                out.append((pre + (c,), -math.inf, pb + p))
+            else:
+                out.append((pre, _lae(pb, pnb) + p_blank, pnb + p))
+        return out
+
     def _line(self, logp: torch.Tensor):
         cls = self.cls
         blank, unk = cls.blank, cls.unknown
+        T = logp.shape[0]
         vals, idx = logp.topk(self.depth, dim=-1)
         n_above = (logp > self.prune).sum(-1)
         arg = idx[:, 0]
         prev = torch.cat([arg.new_full((1,), -1), arg[:-1]])
         keep = (arg != blank) & (arg != unk) & (arg != prev)
-        kept_at = keep.nonzero()[:, 0]
-        end = (min(int(kept_at[-1]) + self.suffix, logp.shape[0])
-               if len(kept_at) else 0)
+        kept_at = keep.nonzero()[:, 0].tolist()
+        greedy = self.tok_of[arg[kept_at].tolist()].tolist() if kept_at \
+            else []
+        end = min(kept_at[-1] + self.suffix, T) if kept_at else 0
         amb = (n_above[:end] != 1).nonzero()[:, 0].tolist()
         rows = dict(zip(amb, logp[amb].cpu().numpy())) if amb else {}
         vals, idx = vals[:end].tolist(), idx[:end].tolist()
         n_above = n_above[:end].tolist()
-        beams = {(): (0.0, -math.inf)}
+        p_blank = logp[:end, blank].tolist()
+        beams = [((), 0.0, -math.inf)]           # (prefix, pb, pnb)
+        n_kept = 0                                # greedy characters <= t
         for t in range(end):
+            while n_kept < len(kept_at) and kept_at[n_kept] <= t:
+                n_kept += 1
             if n_above[t] == 1:
-                c, p = idx[t][0], vals[t][0]
-                nxt: dict = {}
-                if c == blank:
-                    for pre, (pb, pnb) in beams.items():
-                        _add(nxt, pre, pb=_lae(pb, pnb) + p)
-                elif c < unk:
-                    for pre, (pb, pnb) in beams.items():
-                        if pre and pre[-1] == c:
-                            _add(nxt, pre, pnb=pnb + p)
-                            _add(nxt, pre + (c,), pnb=pb + p)
-                        else:
-                            _add(nxt, pre + (c,), pnb=_lae(pb, pnb) + p)
-                else:
-                    continue
-                beams = nxt
+                if idx[t][0] < unk:
+                    beams = self._fast(beams, idx[t][0], vals[t][0],
+                                       p_blank[t])
                 continue
-            got = yield list(beams)
+            suffix = tuple(greedy[n_kept:n_kept + self.suffix])
+            got = yield [tuple(self.tokens(pre)) for pre, _, _ in beams
+                         if pre]
             row = rows[t]
             vis = [(c, p) for c, p in zip(idx[t], vals[t])
                    if p > self.prune and c != unk]
-            nxt, lm_new = {}, {}
-            for pre, (pb, pnb) in beams.items():
-                lm_sum, nlp = got[pre]
-                lm_new[pre] = lm_sum
-                cands = dict(vis)
+            nxt: dict = {}
+            for pre, pb, pnb in beams:
+                cands = list(vis)
                 if pre:
-                    for tk in nlp.topk(self.depth).indices.tolist():
+                    for tk in got[tuple(self.tokens(pre))][1]:
                         c = int(self.cls_of[tk])
-                        if c > 0 and c not in cands:
-                            cands[c] = float(row[c])
+                        if c > 0:
+                            cands.append((c, float(row[c])))
                 prob = _lae(pb, pnb)
-                for c, p in cands.items():
+                for c, p in cands:
                     if c == blank:
                         _add(nxt, pre, pb=prob + p)
                         continue
@@ -450,19 +483,17 @@ class LMSearch:
                         ext = pb + p
                     else:
                         ext = prob + p
-                    if ext == -math.inf:
-                        continue
                     _add(nxt, pre + (c,), pnb=ext)
-                    lm_new[pre + (c,)] = lm_sum + float(
-                        nlp[int(self.tok_of[c])])
+            ahead = {pre: tuple(self.tokens(pre)) + suffix for pre in nxt}
+            got = yield list(ahead.values())
 
             def rank(item):
                 pre, (pb, pnb) = item
-                return (_lae(pb, pnb) + self.lp * lm_new[pre]
+                return (_lae(pb, pnb) + self.lp * got[ahead[pre]][0]
                         + self.lb * len(pre))
-            beams = dict(sorted(nxt.items(), key=rank,
-                                reverse=True)[:self.beam])
-        return list(beams)
+            beams = [(pre, pb, pnb) for pre, (pb, pnb) in
+                     sorted(nxt.items(), key=rank, reverse=True)[:self.beam]]
+        return [pre for pre, _, _ in beams]
 
 
 def ctc_logp_many(logp: torch.Tensor, texts: Sequence[Sequence[int]],

@@ -10,10 +10,12 @@ unpacks itself (its fusion LM through the configuration's LM plug-in,
 shapes the cell's traffic uses, then drives the
 traffic for ``--seconds`` (``traffic.py``): a closed loop through
 ``ServingEngine.infer_arrays``, or open-loop requests through
-``ServingDaemon``. Afterwards it reads the peak memory, frees the program,
-and holds a sample of what the window produced against the plain reference
-(``reference.py``): ``correct`` is whether every compared number is within
-its limit (``limits/<cell>.json``). The last line of standard output is one
+``ServingDaemon``. Afterwards it reads the peak memory, has the program's
+fusion LM score the sampled texts where the LM plug-in can
+(``program_logprobs``), frees the program, and holds a sample of what the
+window produced against the plain reference (``reference.py``):
+``correct`` is whether every compared number is within its limit
+(``limits/<cell>.json``). The last line of standard output is one
 JSON object; ``--trace 1`` reports the per-layer metrics (read by
 ``metrics/<name>.py`` from a card-only profiler trace of the window, the
 benchmark's own spans, and the port's counters and spans that a metric
@@ -65,6 +67,10 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "orbax",
           "handwritten_chinese_ocr_samples_tpu"}
 CLOSE_WAIT_S = 60.0   # an open-loop request may finish this long past the close
 REF_BLOCK = 8         # reference rows a forward
+# the longest continuation that ``lm_gap`` scores: the skip search's longest
+# LM row, a run of ``run_max`` = 8 committed tokens (an ambiguous frame's
+# peek rows hold 1 + ``suffix_frames`` = 5)
+LM_ROW_MAX = 8
 WARM_OPEN_S = 1.0     # set-up drives an open-loop cell's daemon this long
 
 
@@ -98,6 +104,15 @@ class Cell:
         # the fusion LM's plug-in (``lms/<arch>.py``)
         self.lm = (manifest.lm(self.config["lm"]) if "lm" in self.config
                    else None)
+        # ``lm_gap``'s program side: the plug-in's optional hook, on the LM
+        # route
+        self.lm_hook = (getattr(self.lm, "program_logprobs", None)
+                        if self.traffic["route"] == "ss" else None)
+        if "lm_gap" in self.limits and self.lm_hook is None:
+            raise ValueError(
+                f"limits/{name}.json names lm_gap, which only a cell on the "
+                f"LM route whose LM plug-in has program_logprobs reads")
+        self._ref_lm = None
         self.metrics = manifest.metrics(manifest.per_layer(name))
         self.counter_paths, self.want_spans = declared(
             self.metrics.values())
@@ -396,17 +411,46 @@ class Cell:
         return ref.Recognizer(self.state, c["channels"], c["blocks"],
                               self.device, quant_bits=quant_bits)
 
-    def judge(self, picked: list) -> dict:
-        """The compared numbers of ``sample``'s output."""
-        want = self.reference([i for i, _, _ in picked], self.recognizer())
-        return self.numbers(picked, want)
+    def reference_lm(self):
+        """The configuration's plain reference LM, built once."""
+        if self._ref_lm is None:
+            self._ref_lm = self.lm.reference_lm(self.config["lm"],
+                                                self.lm_state, self.device)
+        return self._ref_lm
 
-    def numbers(self, picked: list, want: dict) -> dict:
+    def program_lm(self, picked: list) -> dict | None:
+        """``lm_gap``'s program side, read before the program is freed: the
+        LM that the engine's route holds, through the plug-in's
+        ``program_logprobs``, over each served text of the sample as its
+        LM tokens (``<s>`` first), split into a prefix, its first half and
+        at least ``<s>``, and a continuation, the rest up to
+        ``LM_ROW_MAX`` tokens; None where the cell has no hook."""
+        if self.lm_hook is None:
+            return None
+        lm, rows = self.reference_lm(), []
+        for _, _, texts in picked:
+            for text in texts:
+                tokens = lm.tokens(text)
+                n = max(1, len(tokens) // 2)
+                rows.append((tokens[:n], tokens[n:n + LM_ROW_MAX]))
+        next_logp, cont_sum = self.lm_hook(self.engine, rows)
+        return {"rows": rows, "next_logp": next_logp.float().cpu(),
+                "cont_sum": cont_sum.float().cpu()}
+
+    def judge(self, picked: list, lm_out: dict | None = None) -> dict:
+        """The compared numbers of ``sample``'s output (and of
+        ``program_lm``'s, where given)."""
+        want = self.reference([i for i, _, _ in picked], self.recognizer())
+        return self.numbers(picked, want, lm_out)
+
+    def numbers(self, picked: list, want: dict,
+                lm_out: dict | None = None) -> dict:
         """``feat_err``: the largest relative RMS difference of a line's
         trunk features from the reference's (its precision);
         ``token_gap``: the widest gap by which a served character's logit
         lies below the reference's best (``reference.token_gap``);
-        ``score_loss`` on the LM route (``_score_loss``)."""
+        ``score_loss`` on the LM route (``_score_loss``); ``lm_gap`` where
+        ``lm_out`` holds the program's LM log-probs (``_lm_gap``)."""
         cls = self.classes
         errs = [float((f.to(want[i][0].device).float() - want[i][0]).norm()
                       / want[i][0].norm()) if f is not None
@@ -418,20 +462,26 @@ class Cell:
                                   for i, s in pairs),
                                  default=ref.UNREACHABLE)}
         if self.traffic["route"] == "ss":
-            nums["score_loss"] = self._score_loss(
+            nums["score_loss"], nums["score_best_loss"] = self._score_loss(
                 picked, {i: w[1] for i, w in want.items()})
+        if lm_out is not None:
+            nums["lm_gap"] = self._lm_gap(lm_out)
         nums["lines_checked"] = len(picked)
         return nums
 
-    def _score_loss(self, picked: list, logits: dict) -> float:
-        """How far a served text's score lies below the best text that the
-        reference's own LM-fused search (``reference.LMSearch``, at the
-        configuration's settings) ends with, the greedy reading among them,
-        by the search's objective ``log p_ctc + lm_panelty * log p_lm +
-        len_bonus * length``, each term worked out exactly; largest over
-        the sample."""
+    def _score_loss(self, picked: list, logits: dict) -> tuple:
+        """``(score_loss, score_best_loss)``: how far a served text's score
+        lies below that of the text the reference's own search serves (the
+        first of the beams that ``reference.LMSearch``, at the
+        configuration's settings, ends with), and below the best of all its
+        final beams and the greedy reading, by the search's objective
+        ``log p_ctc + lm_panelty * log p_lm + len_bonus * length``, each
+        term worked out exactly; largest over the sample. The search ranks
+        by a look-ahead, not by that objective, so its first beam need not
+        be its best: the second number reads how far the search itself
+        falls short, the first how far the program departs from it."""
         lmc, cls = self.config["lm"], self.classes
-        lm = self.lm.reference_lm(lmc, self.lm_state, self.device)
+        lm = self.reference_lm()
         search = ref.LMSearch(lm, cls, beam=lmc["beam_size"],
                               depth=lmc["search_depth"],
                               prune=math.log(lmc["prune"]),
@@ -439,11 +489,11 @@ class Cell:
                               len_bonus=lmc["len_bonus"])
         logps = [torch.log_softmax(logits[i], dim=-1) for i, _, _ in picked]
         finals = search.run(logps)
-        worst = -float("inf")
+        worst = best = -float("inf")
         for (i, _, texts), logp, beams in zip(picked, logps, finals):
             served = [cls.ids(s) for s in texts]
             if any(ids is None for ids in served):
-                return ref.UNREACHABLE
+                return ref.UNREACHABLE, ref.UNREACHABLE
             greedy = tuple(ref.greedy_ids(logits[i], cls.blank, cls.unknown))
             found = list(dict.fromkeys(list(beams) + [greedy]))
             every = found + [tuple(ids) for ids in served]
@@ -451,9 +501,28 @@ class Cell:
             lm_lp, _ = lm.score([search.tokens(t) for t in every])
             score = [c + lmc["lm_panelty"] * m + lmc["len_bonus"] * len(t)
                      for c, m, t in zip(ctc, lm_lp, every)]
-            worst = max(worst, max(score[:len(found)])
-                        - min(score[len(found):]))
-        return worst
+            low = min(score[len(found):])
+            worst = max(worst, score[0] - low)
+            best = max(best, max(score[:len(found)]) - low)
+        return worst, best
+
+    def _lm_gap(self, got: dict) -> float:
+        """The widest gap, in nats, between the program's LM log-probs over
+        ``program_lm``'s rows and the reference LM's full forward (f32, TF32 off):
+        over the whole vocabulary of the next token after each prefix, and
+        the continuation's summed log-prob after the prefix over its
+        length; largest over the rows."""
+        lm, rows = self.reference_lm(), got["rows"]
+        pre, nxt = lm.score([p[1:] for p, _ in rows])
+        full, _ = lm.score([p[1:] + c for p, c in rows])
+        gaps = (got["next_logp"].to(nxt.device) - nxt).abs().amax(-1)
+        out = gaps.tolist()
+        for k, (_, c) in enumerate(rows):
+            if c:
+                want = full[k] - pre[k]
+                out[k] = max(out[k], abs(float(got["cont_sum"][k]) - want)
+                             / len(c))
+        return max(out, default=ref.UNREACHABLE)
 
     def control_reference(self, seed: int, seconds: float) -> dict:
         """The reference in the program's place at the configuration's
@@ -472,6 +541,10 @@ class Cell:
 
 
 def correct_of(numbers: dict, limits: dict) -> tuple:
+    missing = sorted(set(limits) - set(numbers))
+    if missing:
+        raise ValueError(f"the limits name {missing}, which this run does "
+                         f"not compute (it computes {sorted(numbers)})")
     checks, ok = {}, True
     for name, lim in limits.items():
         limit = lim["limit"]
@@ -596,6 +669,9 @@ def run(args) -> dict:
     out, traced = cell.windows(args.seed, args.seconds, bool(args.trace))
     peak = torch.cuda.max_memory_allocated(device)
     picked = cell.sample(out)
+    t0 = time.perf_counter()
+    lm_out = cell.program_lm(picked)
+    lm_s = time.perf_counter() - t0
     result_device = {"platform": "gpu",
                      "kind": torch.cuda.get_device_name(device),
                      "count": spec["chips"], "memory_peak_bytes": int(peak),
@@ -622,8 +698,8 @@ def run(args) -> dict:
     parts = setup_parts()
     cell.free_program()
     t0 = time.perf_counter()
-    numbers = cell.judge(picked)
-    check_s = time.perf_counter() - t0
+    numbers = cell.judge(picked, lm_out)
+    check_s = time.perf_counter() - t0 + lm_s
     ok, checks = correct_of(numbers, cell.limits)
     ok = ok and out["failed"] == 0 and (traced is None
                                         or traced["failed"] == 0)

@@ -8,7 +8,10 @@ by the greedy reading, answers swapped between requests, and the control
 (the program's int8 path; the reference on 4-bit integers). A fusion LM
 that a configuration brings as a plug-in of its own (``lms/<arch>.py``,
 here in the test's folder), with weights drawn from a seed, goes the same
-way.
+way. The char LM with weights drawn from a seed, through the benchmark's
+own plug-in, holds the reference's search to the program's line by line
+and reads ``lm_gap``, which the program's LM on other weights, with a
+layer left out or with its int8 step fails.
 """
 
 import json
@@ -31,11 +34,16 @@ LIMITS = {"feat_err": {"limit": 0.002}, "token_gap": {"limit": 0.05},
 # the LM search may take a character whose logit lies a few below the best
 SS_TOKEN_GAP = {"limit": 3.0}
 # with the seeded LM (random weights, which overturn visual margins more
-# often than trained ones) sound runs read score_loss 0.67-1.26 over seeds
-# 1-8, the reference on another seed's weights 4.75, an altered character
-# 15.4-24.6; token_gap (sound up to 5.67) is reported, not compared, as on
-# the card's skip-search cell
-SEEDED_LIMITS = {"feat_err": LIMITS["feat_err"], "score_loss": {"limit": 3.0}}
+# often than trained ones) sound runs read score_loss 0.0 over seeds 1-8:
+# the reference's search serves the program's text on every line (f32 on
+# both sides); the reference on another seed's weights 1.8-7.6, an altered
+# character 22.4, the greedy reading 1.6-2.5; token_gap (sound up to 5.67)
+# is reported, not compared, as on the card's skip-search cell. lm_gap
+# reads 2.4e-6-2.9e-6 (f32 rounding), the program's LM on another seed's
+# weights 4.6, with its last layer left out 2.8, with its int8 step
+# 0.0068-0.0081, in bf16 0.027
+SEEDED_LIMITS = {"feat_err": LIMITS["feat_err"], "score_loss": {"limit": 0.05}}
+LM_GAP = {"limit": 1e-4}
 
 
 def _config(tmp, int8=False, control=None):
@@ -169,9 +177,11 @@ def token_flops(lm, context):
 
 @pytest.fixture
 def seeded(tiny):
-    """``tiny`` and a cell ``ss-seeded``: the skip search with a fusion LM
-    of the arch ``tiny-seeded`` (``SEEDED_LM``, in the manifest's folder),
-    its weights drawn from seed 7."""
+    """``tiny`` and two cells of the skip search with a fusion LM whose
+    weights are drawn from seed 7: ``ss-seeded``, of the arch
+    ``tiny-seeded`` (``SEEDED_LM``, in the manifest's folder, without
+    ``program_logprobs``), and ``ss-seeded-ct``, the benchmark's own char
+    transformer plug-in, judged on ``lm_gap`` too."""
     folder = tiny.folder
     os.makedirs(os.path.join(folder, "lms"))
     with open(os.path.join(folder, "lms", "tiny-seeded.py"), "w") as f:
@@ -184,24 +194,38 @@ def seeded(tiny):
         json.dump(cfg, f)
     with open(os.path.join(folder, "limits", "ss-seeded.json"), "w") as f:
         json.dump(SEEDED_LIMITS, f)
+    cfg = dict(cfg, name="tiny-seeded-ct")
+    cfg["lm"] = {k: v for k, v in cfg["lm"].items() if k != "arch"}
+    path_ct = os.path.join(folder, "configs", "tiny-seeded-ct.json")
+    with open(path_ct, "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(folder, "limits", "ss-seeded-ct.json"), "w") as f:
+        json.dump(dict(SEEDED_LIMITS, lm_gap=LM_GAP), f)
     data = dict(tiny.data)
-    data["configs"] = data["configs"] + [{"name": "tiny-seeded",
-                                          "file": path}]
-    data["workloads"] = data["workloads"] + [{
-        "name": "ss-seeded", "config": "tiny-seeded", "traffic": "ss",
-        "chips": 1}]
+    data["configs"] = data["configs"] + [
+        {"name": "tiny-seeded", "file": path},
+        {"name": "tiny-seeded-ct", "file": path_ct}]
+    data["workloads"] = data["workloads"] + [
+        {"name": "ss-seeded", "config": "tiny-seeded", "traffic": "ss",
+         "chips": 1},
+        {"name": "ss-seeded-ct", "config": "tiny-seeded-ct",
+         "traffic": "ss", "chips": 1}]
     return Manifest(data, folder=folder)
 
 
-def drive(manifest, cell_name, seed=5, seconds=0.5, control=False):
+def drive(manifest, cell_name, seed=5, seconds=0.5, control=False,
+          lm_int8=False):
     """A run past the card check on the CPU: set-up, window, sample, the
-    reference's judgement and ``correct``."""
-    cell = bench.Cell(manifest, cell_name, "cpu", control=control)
+    program's LM log-probs where the plug-in has the hook, the reference's
+    judgement and ``correct``."""
+    cell = bench.Cell(manifest, cell_name, "cpu", control=control,
+                      lm_int8=lm_int8)
     cell.setup()
     out = cell.window(seed, seconds)
     picked = cell.sample(out)
+    lm_out = cell.program_lm(picked)
     cell.free_program()
-    nums = cell.judge(picked)
+    nums = cell.judge(picked, lm_out)
     ok, checks = bench.correct_of(nums, cell.limits)
     return ok and out["failed"] == 0, nums, out
 
@@ -239,19 +263,22 @@ def test_ss_sound_then_token_altered(tiny, monkeypatch):
     assert nums["score_loss"] > 1.0, nums
 
 
-def test_ss_greedy_in_place_of_the_search(tiny, monkeypatch):
+@pytest.mark.parametrize("cell", ["ss", "ss-seeded-ct"])
+def test_ss_greedy_in_place_of_the_search(seeded, monkeypatch, cell):
     """The search's answer replaced by the greedy reading (the LM dropped)
-    reads below the reference search's best, where the greedy collapse
-    alone stays within every logit limit."""
+    reads below the reference search's, with the trained LM and with the
+    seeded one, where the greedy collapse alone stays within every logit
+    limit and the LM's own log-probs stay sound."""
     from handwritten_chinese_ocr_samples_torch.decode import adaptive, routes
     monkeypatch.setattr(
         adaptive.AdaptiveLMBeam, "decode",
         lambda self, cv, ci, logits, *a: routes.greedy_decode_device(
             logits, unknown_id=self.unknown_id))
-    ok, nums, _ = drive(tiny, "ss", seed=6)
+    ok, nums, _ = drive(seeded, cell, seed=6)
     assert not ok and nums["score_loss"] > LIMITS["score_loss"]["limit"], \
         nums
     assert nums["token_gap"] == 0.0 and nums["feat_err"] < 1e-3, nums
+    assert nums["lm_gap"] < LM_GAP["limit"], nums
 
 
 def test_seeded_lm_of_its_own_arch_then_token_altered(seeded, monkeypatch):
@@ -264,6 +291,8 @@ def test_seeded_lm_of_its_own_arch_then_token_altered(seeded, monkeypatch):
         bench.roofline.lm_token_flops(3, 128, 3, 2048, 204)
     ok, nums, _ = drive(seeded, "ss-seeded")
     assert ok, nums
+    # a plug-in without program_logprobs: no lm_gap
+    assert "lm_gap" not in nums and nums["score_loss"] == 0.0, nums
     from handwritten_chinese_ocr_samples_torch.decode import adaptive
     real = adaptive.AdaptiveLMBeam.decode
     monkeypatch.setattr(adaptive.AdaptiveLMBeam, "decode",
@@ -287,6 +316,105 @@ def test_seeded_lm_reference_on_other_weights_fails(seeded, monkeypatch):
     ok, nums, _ = drive(seeded, "ss-seeded")
     limit = SEEDED_LIMITS["score_loss"]["limit"]
     assert not ok and nums["score_loss"] > limit, nums
+
+
+def test_limits_naming_lm_gap_need_the_hook(seeded):
+    """A cell whose LM plug-in has no ``program_logprobs``, or that is not
+    on the LM route, cannot be judged on ``lm_gap``: naming it fails before
+    the run, with a message."""
+    for cell in ("ss-seeded", "greedy"):
+        path = os.path.join(seeded.folder, "limits", f"{cell}.json")
+        with open(path) as f:
+            limits = json.load(f)
+        with open(path, "w") as f:
+            json.dump(dict(limits, lm_gap=LM_GAP), f)
+        with pytest.raises(ValueError, match="program_logprobs"):
+            bench.Cell(seeded, cell, "cpu")
+
+
+def test_seeded_lm_sound_runs(seeded):
+    """The seeded char LM through the benchmark's plug-in: the program's
+    served text is the reference search's first beam on every sampled line
+    (``score_loss`` 0), the search's first beam need not be its best by the
+    exact objective (``score_best_loss``), and the program's LM log-probs
+    lie within f32 rounding of the reference's full forward."""
+    for seed in (3, 5):
+        ok, nums, _ = drive(seeded, "ss-seeded-ct", seed=seed)
+        assert ok, nums
+        assert nums["score_loss"] == 0.0, nums
+        assert nums["score_best_loss"] >= nums["score_loss"], nums
+        assert nums["lm_gap"] < LM_GAP["limit"], nums
+
+
+def test_lm_search_follows_the_program_line_by_line(seeded):
+    """On every line of the seeded cell, the reference's search over the
+    reference's logits ends with the program's served text first."""
+    import math
+    import reference as ref
+    cell = bench.Cell(seeded, "ss-seeded-ct", "cpu")
+    cell.setup()
+    out = cell.window(4, 0.5)
+    lines = list(range(len(cell.lines)))
+    cell.free_program()
+    want = cell.reference(lines, cell.recognizer())
+    lmc, cls = cell.config["lm"], cell.classes
+    search = ref.LMSearch(cell.reference_lm(), cls, beam=lmc["beam_size"],
+                          depth=lmc["search_depth"],
+                          prune=math.log(lmc["prune"]),
+                          lm_panelty=lmc["lm_panelty"],
+                          len_bonus=lmc["len_bonus"])
+    finals = search.run([torch.log_softmax(want[i][1], -1) for i in lines])
+    for i, beams in zip(lines, finals):
+        assert out["served"][i] == {cls.text(beams[0])}, (i, beams[:3])
+
+
+def _other_seed(monkeypatch):
+    """The program's LM built from another seed's weights."""
+    real = Manifest.lm
+
+    def other_seed(self, lm_cfg):
+        lm = real(self, lm_cfg)
+        make = lm.program_lm
+        lm.program_lm = lambda c, state, dev: make(
+            c, lm.load_state(dict(c, weights={"seed": 8}), dev), dev)
+        return lm
+    monkeypatch.setattr(Manifest, "lm", other_seed)
+    return {}
+
+
+def _drop_layer(monkeypatch):
+    """The program's LM with its last layer left out."""
+    from handwritten_chinese_ocr_samples_torch.lm.cached import CachedLM
+    init = CachedLM.__init__
+
+    def dropped(self, *a, **k):
+        init(self, *a, **k)
+        self.layers = self.layers[:-1]
+        self.n_layers -= 1
+    monkeypatch.setattr(CachedLM, "__init__", dropped)
+    return {}
+
+
+def _bf16(monkeypatch):
+    """The program's LM in bf16 where the configuration states f32."""
+    from handwritten_chinese_ocr_samples_torch.lm.cached import CachedLM
+    init = CachedLM.__init__
+    monkeypatch.setattr(CachedLM, "__init__", lambda self, *a, **k: init(
+        self, *a, **dict(k, dtype=torch.bfloat16)))
+    return {}
+
+
+@pytest.mark.parametrize("fault", ["other_seed", "drop_layer", "int8",
+                                   "bf16"])
+def test_lm_gap_fails_a_broken_program_lm(seeded, monkeypatch, fault):
+    """The program's LM on another seed's weights, with a layer left out,
+    with its int8 step (the step's FF and head in int8), or in bf16 where
+    the configuration states f32, reads beyond ``lm_gap``'s limit."""
+    kw = ({"lm_int8": True} if fault == "int8" else
+          {"other_seed": _other_seed, "drop_layer": _drop_layer,
+           "bf16": _bf16}[fault](monkeypatch))
+    ok, nums, _ = drive(seeded, "ss-seeded-ct", **kw)
+    assert not ok and nums["lm_gap"] > 10 * LM_GAP["limit"], nums
 
 
 def test_open_sound_then_answers_swapped(tiny, monkeypatch):
@@ -334,6 +462,7 @@ def test_cells_control_fails_on_card():
             cell.setup()
             out = cell.window(11, 5.0)
             picked = cell.sample(out)
+            lm_out = cell.program_lm(picked)
             cell.free_program()
-            ok, _ = bench.correct_of(cell.judge(picked), cell.limits)
+            ok, _ = bench.correct_of(cell.judge(picked, lm_out), cell.limits)
         assert not ok, name

@@ -76,6 +76,11 @@ def test_nothing_loads_jax_and_the_reference_loads_no_program():
             "sorted(glob.glob(os.path.join(m.folder, 'lms', '*.py')))]\n"
             "assert lms\n")
     assert not _modules_after(load) & (BANNED | {PORT})
+    # the char LM's program_logprobs, like program_lm, imports the port
+    # inside it alone
+    hook = (load + "lm = m.lm({'arch': 'char-transformer'})\n"
+            "assert callable(lm.program_logprobs)\n")
+    assert not _modules_after(hook) & (BANNED | {PORT})
     cfg = f"{ASSETS}/lm/config.json"
     build = (load + "import json\n"
              f"c = {{'config': json.load(open({cfg!r})), "
@@ -209,15 +214,21 @@ def test_token_gap_and_greedy_collapse_by_hand():
     assert ref.token_gap(logits[:1], [1, 2], 0, 3) == ref.UNREACHABLE
 
 
-def test_lm_search_finds_the_best_text_by_brute_force():
-    """With a beam wide enough to keep every prefix and every frame
-    searched, the reference's LM-fused search ends with the text that
-    maximises ``log p_ctc + lm_panelty * log p_lm + len_bonus * length``
-    over every text up to its frame count."""
-    import itertools
+def test_correct_of_names_what_a_run_lacks():
+    import run
+    ok, checks = run.correct_of({"a": 1.0, "b": 2.0}, {"a": {"limit": 1.5}})
+    assert ok and checks == {"a": {"value": 1.0, "limit": 1.5}}
+    with pytest.raises(ValueError, match="lm_gap"):
+        run.correct_of({"a": 1.0}, {"a": {"limit": 1.5},
+                                    "lm_gap": {"limit": 0.1}})
+
+
+def _tiny_char_lm(seed: int = 0):
+    """A random 1-layer char LM over ``a b c`` and its classes: blank 0,
+    a-c 1-3, unknown 4."""
     import torch
     import reference as ref
-    torch.manual_seed(0)
+    torch.manual_seed(seed)
     d, V = 8, 4 + 3
     cfg = {"d_model": d, "n_layers": 1, "n_heads": 2, "d_ff": 16}
     state = {"embed.weight": torch.randn(V, d), "pos_embed": torch.randn(8, d),
@@ -232,7 +243,78 @@ def test_lm_search_finds_the_best_text_by_brute_force():
         state[f"layer0.{n}.bias"] = torch.randn(o) / 3
     lm = ref.CharLM(state, cfg, ["<s>", "<pad>", "</s>", "<unk>", "a", "b",
                                  "c"], "cpu")
-    cls = ref.Classes(["a", "b", "c"])         # blank 0, a-c 1-3, unknown 4
+    return lm, ref.Classes(["a", "b", "c"])
+
+
+def test_lm_search_one_class_frames_by_hand():
+    """A frame where one class alone lies above the prune updates each beam
+    in place by the skip search's rules: a blank keeps ``pnb``; a repeat of
+    the beam's last character is appended where ``pb`` is live, else folded
+    into it with the blank's log-prob; beams of one prefix stay apart."""
+    import math
+    import reference as ref
+    lm, cls = _tiny_char_lm()
+    search = ref.LMSearch(lm, cls, beam=4, depth=3, prune=-5.0,
+                          lm_panelty=0.5, len_bonus=0.0)
+    inf = -math.inf
+    beams = [((1,), -1.0, -2.0), ((2,), inf, -0.5)]
+    assert search._fast(beams, 0, -0.1, -0.1) == [
+        ((1,), ref._lae(-1.0, -2.0) - 0.1, -2.0), ((2,), -0.6, -0.5)]
+    assert search._fast(beams, 1, -0.2, -3.0) == [
+        ((1, 1), inf, -1.2), ((2, 1), inf, ref._lae(inf, -0.5) - 0.2)]
+    assert search._fast(beams, 2, -0.2, -3.0) == [
+        ((1, 2), inf, ref._lae(-1.0, -2.0) - 0.2), ((2,), -3.5, -0.7)]
+    assert search._fast([((), 0.0, inf), ((1,), inf, -0.5)], 1, -0.3,
+                        -2.0) == [((1,), inf, -0.3), ((1,), -2.5, -0.8)]
+
+
+def test_lm_search_ranks_with_the_look_ahead():
+    """At an ambiguous frame followed by a forced run, a beam of one keeps
+    the candidate whose prefix with the next greedy characters scores best
+    (``log p_ctc + lm_panelty * log p_lm(prefix + suffix) + len_bonus *
+    len(prefix)``), which the forced run then extends; on the LM drawn here
+    the prefix alone would rank another candidate first."""
+    import torch
+    import reference as ref
+    # frame 0: a, b and the blank above the prune; then c, blank, a, blank,
+    # b, each alone; the greedy line is a c a b
+    logits = torch.full((6, 5), -30.0)
+    logits[0, :3] = torch.tensor([2.0, 3.0, 2.9])
+    logits[1, 3] = logits[2, 0] = logits[3, 1] = logits[4, 0] = 10.0
+    logits[5, 2] = 10.0
+    logp = torch.log_softmax(logits, -1)
+    lp, lb = 2.0, 0.5
+    picks = None
+    for seed in range(40):
+        lm, cls = _tiny_char_lm(seed)
+        search = ref.LMSearch(lm, cls, beam=1, depth=3, prune=-6.9,
+                              lm_panelty=lp, len_bonus=lb)
+        cands = [(), (1,), (2,)]
+        ahead = [search.tokens(c + (3, 1, 2)) for c in cands]
+        alone = [search.tokens(c) for c in cands]
+
+        def best(token_lists):
+            sums, _ = lm.score(token_lists)
+            score = [float(logp[0, c[0] if c else 0]) + lp * m + lb * len(c)
+                     for c, m in zip(cands, sums)]
+            return cands[max(range(3), key=score.__getitem__)]
+        if best(ahead) != best(alone):
+            picks = best(ahead), best(alone)
+            break
+    assert picks is not None
+    beams, = search.run([logp])
+    assert beams == [picks[0] + (3, 1, 2)]
+
+
+def test_lm_search_finds_the_best_text_by_brute_force():
+    """With a beam wide enough to keep every prefix and every frame
+    searched, the reference's LM-fused search ends with the text that
+    maximises ``log p_ctc + lm_panelty * log p_lm + len_bonus * length``
+    over every text up to its frame count."""
+    import itertools
+    import torch
+    import reference as ref
+    lm, cls = _tiny_char_lm()
     # every frame ambiguous (several classes above the prune), the unknown
     # class never a candidate; greedy keeps a character at the last frame
     # (a blank before it), so that the search runs to the end
